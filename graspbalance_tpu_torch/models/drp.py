@@ -1,0 +1,121 @@
+"""DRP backbone (port of graspbalance_tpu/models/drp.py, eval forward).
+
+Four set-abstraction stages (npoint 2048/1024/512/256), each followed by
+3/6/3/3 inverted-residual blocks, then two feature-propagation stages back
+to the 1024-point seed level. One 2048-point FPS serves all four stages:
+greedy FPS re-traces itself on its own output, so stage i samples the first
+``npoint`` points of the running FPS order, and the stages just slice.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from graspbalance_tpu_torch import ops
+from graspbalance_tpu_torch.nn.layers import MLPBlock
+from graspbalance_tpu_torch.nn.sa_fp import FeaturePropagation, SetAbstraction
+from graspbalance_tpu_torch.ops.fps import furthest_point_sample_plain
+
+
+class LocalAggregation(nn.Module):
+    """Ball-query neighbourhood aggregation, 'dp_fj' features, max reduction,
+    in the lifted form: the block's linear layer commutes with the gather,
+    ``[p_j - c_i, f_j] @ W == [p_j, f_j] @ W - [c_i, 0] @ W``, so both
+    products run on N rows and one gather moves their difference's terms."""
+
+    def __init__(self, channels: int, radius: float, nsample: int):
+        super().__init__()
+        self.radius = radius
+        self.nsample = nsample
+        self.conv = MLPBlock(3 + channels, channels)
+
+    def forward(self, xyz: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
+        idx = ops.ball_query(xyz, xyz, self.radius, self.nsample)
+        e = self.conv(torch.cat([xyz, feats], dim=-1), stage="dense")
+        cw = self.conv(torch.cat([xyz, torch.zeros_like(feats)], dim=-1), stage="dense")
+        pre = ops.group_points(e, idx) - cw.unsqueeze(2)
+        return self.conv(pre, stage="post").amax(dim=2)
+
+
+EXPANSION = 4  # InvResMLP's pointwise width multiple
+
+
+class InvResMLP(nn.Module):
+    """LocalAggregation -> [C -> 4C (BN+ReLU) -> C (BN)] -> +residual -> ReLU."""
+
+    def __init__(self, channels: int, radius: float, nsample: int):
+        super().__init__()
+        self.local_agg = LocalAggregation(channels, radius, nsample)
+        self.pw1 = MLPBlock(channels, channels * EXPANSION)
+        self.pw2 = MLPBlock(channels * EXPANSION, channels, act=False)
+
+    def forward(self, xyz: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
+        f = self.pw2(self.pw1(self.local_agg(xyz, feats)))
+        return torch.relu(f + feats)
+
+
+# (npoint, sa_radius, sa_nsample, mlp, n_blocks, block_radius, block_nsample)
+DRP_STAGES = (
+    (2048, 0.04, 64, (64, 64, 128), 3, 0.08, 64),
+    (1024, 0.10, 32, (128, 128, 256), 6, 0.20, 32),
+    (512, 0.20, 16, (128, 128, 256), 3, 0.40, 16),
+    (256, 0.30, 16, (128, 128, 256), 3, 0.60, 16),
+)
+
+
+class DRP(nn.Module):
+    """Modules are named as in the flax tree: sa{i}, block{i}_{j}, fp1, fp2."""
+
+    def __init__(self, stages=DRP_STAGES, num_seed: int = 1024):
+        super().__init__()
+        self.stages = tuple(stages)
+        self.num_seed = num_seed
+        c = 0  # the clouds carry xyz only
+        for i, (_, radius, nsample, mlp, n_blocks, b_radius, b_nsample) in enumerate(self.stages):
+            self.add_module(f"sa{i + 1}", SetAbstraction(c, radius, nsample, mlp))
+            c = mlp[-1]
+            for j in range(n_blocks):
+                self.add_module(f"block{i + 1}_{j}", InvResMLP(c, b_radius, b_nsample))
+        widths = [s[3][-1] for s in self.stages]
+        self.fp1 = FeaturePropagation(widths[3] + widths[2], (256, 256))
+        self.fp2 = FeaturePropagation(256 + widths[1], (256, 256))
+
+    def forward(self, pointcloud: torch.Tensor, *, sa_inds=None, plain: bool = False) -> dict:
+        """pointcloud (B, N, 3); sa_inds optional (B, npoint_1) FPS indices.
+        ``plain`` runs FPS's plain PyTorch version instead of the kernel.
+
+        Returns input_xyz, input_features (None), sa1_inds,
+        sa{1..4}_{xyz,features}, fp2_features (B, num_seed, 256), fp2_xyz,
+        fp2_inds."""
+        if pointcloud.ndim != 3 or pointcloud.shape[-1] != 3:
+            raise ValueError(f"point clouds must be (B, N, 3), got {tuple(pointcloud.shape)}")
+        xyz, features = pointcloud, None
+        out = {"input_xyz": xyz, "input_features": features}
+        if sa_inds is None:
+            fps = furthest_point_sample_plain if plain else ops.furthest_point_sample
+            sa_inds = fps(xyz, self.stages[0][0])
+        out["sa1_inds"] = sa_inds
+
+        stage_xyz, stage_feats = [], []
+        cur_xyz, cur_feats = xyz, features
+        for i, stage in enumerate(self.stages):
+            npoint, n_blocks = stage[0], stage[4]
+            if i == 0:
+                inds = sa_inds
+            else:  # nested-prefix FPS: the first npoint of the running order
+                inds = torch.arange(npoint, device=xyz.device).expand(xyz.shape[0], npoint)
+            cur_xyz, cur_feats = getattr(self, f"sa{i + 1}")(cur_xyz, cur_feats, inds)
+            for j in range(n_blocks):
+                cur_feats = getattr(self, f"block{i + 1}_{j}")(cur_xyz, cur_feats)
+            out[f"sa{i + 1}_xyz"] = cur_xyz
+            out[f"sa{i + 1}_features"] = cur_feats
+            stage_xyz.append(cur_xyz)
+            stage_feats.append(cur_feats)
+
+        f = self.fp1(stage_xyz[2], stage_xyz[3], stage_feats[2], stage_feats[3])
+        f = self.fp2(stage_xyz[1], stage_xyz[2], stage_feats[1], f)
+        out["fp2_features"] = f
+        out["fp2_xyz"] = stage_xyz[1]
+        out["fp2_inds"] = sa_inds[:, : self.num_seed]
+        return out

@@ -1,0 +1,63 @@
+"""GraspBalance eval forward (port of graspbalance_tpu/models/graspbalance.py,
+``backbone='drp'``, ``multi_scale=True``, ``match_labels=False``, no OBS).
+
+  Stage 1: DRP backbone -> GraspableDetection (objectness, view scores, top
+           view and its approach rotation).
+  Stage 2: multi-scale cylinder width grouping at the top view -> 1x1 fuse
+           -> gated fusion with the seed features -> grasp parameter and
+           tolerance heads.
+
+The end-point keys are those of the JAX eval forward: input_xyz,
+input_features, sa1_inds, sa{1..4}_{xyz,features}, fp2_{features,xyz,inds},
+objectness_score, view_score, grasp_top_view_{inds,score,xyz,rot},
+grasp_{score,angle_cls,width}_pred, grasp_tolerance_pred.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from graspbalance_tpu_torch.models.drp import DRP, DRP_STAGES
+from graspbalance_tpu_torch.models.heads import (
+    SCALES,
+    SEED_FEATURES,
+    GraspableDetection,
+    GraspParametersHead,
+    MultiScaleWidthGrouping,
+    ToleranceHead,
+)
+
+
+class GraspBalance(nn.Module):
+    """The JAX model's fields that the tests vary; the others are constants
+    of the heads (12 angles, 4 depths, cylinder radius 0.08 at 4 scales)."""
+
+    def __init__(self, *, num_view: int = 300, backbone_stages=DRP_STAGES, num_seed: int = 1024):
+        super().__init__()
+        self.backbone = DRP(backbone_stages, num_seed=num_seed)
+        self.graspable = GraspableDetection(num_view)
+        self.width_grouping = MultiScaleWidthGrouping()
+        self.fuse_multi_scale = nn.Linear(len(SCALES) * 256, 256)
+        self.gate_fusion = nn.Linear(SEED_FEATURES, 256)
+        self.grasp_params = GraspParametersHead()
+        self.tolerance = ToleranceHead()
+
+    @torch.no_grad()
+    def forward(self, point_clouds: torch.Tensor, *, sa_inds=None, plain: bool = False) -> dict:
+        """point_clouds (B, N, 3) -> end points (see the module docstring).
+
+        The kernels have no backward, so the forward runs without gradients.
+        ``plain`` runs the kernels' plain PyTorch versions instead (to compare
+        against them on the card); on CPU tensors they run either way."""
+        ep = self.backbone(point_clouds, sa_inds=sa_inds, plain=plain)
+        seed_xyz, seed_features = ep["fp2_xyz"], ep["fp2_features"]
+        ep.update(self.graspable(seed_xyz, seed_features))
+        vp = self.width_grouping(
+            seed_xyz, ep["input_xyz"], ep["grasp_top_view_rot"], plain=plain
+        )  # (B, Ns, D, 4*256)
+        gate = torch.sigmoid(self.gate_fusion(seed_features))
+        vp_features = self.fuse_multi_scale(vp) + (gate * seed_features).unsqueeze(2)
+        ep.update(self.grasp_params(vp_features))
+        ep.update(self.tolerance(vp_features))
+        return ep

@@ -1,0 +1,135 @@
+"""Grasp detection heads, eval forward (port of graspbalance_tpu/models/heads.py).
+
+Output layouts (channels-last):
+  objectness_score      (B, Ns, 2)
+  view_score            (B, Ns, V)
+  grasp_score_pred      (B, Ns, A, D)
+  grasp_angle_cls_pred  (B, Ns, A, D)
+  grasp_width_pred      (B, Ns, A, D)
+  grasp_tolerance_pred  (B, Ns, A, D)
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from graspbalance_tpu_torch.labels.geometry import (
+    batch_viewpoint_params_to_matrix,
+    generate_grasp_views,
+)
+from graspbalance_tpu_torch.nn.layers import MLPBlock, SharedMLP
+from graspbalance_tpu_torch.ops.gather import group_points
+from graspbalance_tpu_torch.ops.multicyl import multi_cylinder_group, multi_cylinder_group_plain
+from graspbalance_tpu_torch.ops.widthmlp import width_mlp_fused_rot, width_mlp_fused_rot_plain
+
+SEED_FEATURES = 256
+NUM_ANGLE = 12
+CYLINDER_RADIUS = 0.08
+HMIN = -0.02
+HMAX_LIST = (0.01, 0.02, 0.03, 0.04)  # one gripper depth each
+SCALES = (0.25, 0.5, 0.75, 1.0)  # cylinder radius multiples
+
+
+class GraspableDetection(nn.Module):
+    """Objectness + per-view score head: 256 -> 256 -> (2+V) -> (2+V); picks
+    the top view per seed and builds its approach rotation (angle 0)."""
+
+    def __init__(self, num_view: int = 300):
+        super().__init__()
+        self.num_view = num_view
+        self.conv1 = MLPBlock(SEED_FEATURES, SEED_FEATURES)
+        self.conv2 = MLPBlock(SEED_FEATURES, 2 + num_view)
+        self.conv3 = nn.Linear(2 + num_view, 2 + num_view)
+
+    def forward(self, seed_xyz: torch.Tensor, seed_features: torch.Tensor) -> dict:
+        x = self.conv3(self.conv2(self.conv1(seed_features)))
+        view_score = x[..., 2:]
+        top_view_scores, top_view_inds = torch.max(view_score, dim=-1)
+        templates = generate_grasp_views(self.num_view, device=x.device)
+        vp_xyz = templates[top_view_inds]  # (B, Ns, 3)
+        vp_rot = batch_viewpoint_params_to_matrix(-vp_xyz, torch.zeros_like(vp_xyz[..., 0]))
+        return {
+            "objectness_score": x[..., :2],
+            "view_score": view_score,
+            "grasp_top_view_inds": top_view_inds.to(torch.int32),
+            "grasp_top_view_score": top_view_scores,
+            "grasp_top_view_xyz": vp_xyz,
+            "grasp_top_view_rot": vp_rot,
+        }
+
+
+class MultiScaleWidthGrouping(nn.Module):
+    """All four cylinder-radius scales of the width-grouping head, eval path:
+
+    1. one multi-cylinder query computes the 4 radii x 4 depths neighbour
+       indices (kernel 2);
+    2. a seed-major gather of the raw neighbour coordinates;
+    3. each scale's BN-folded MLP 3 -> 64 -> 128 -> 256 with the rotation
+       and center folded into layer 0, then the max over K (kernel 3).
+
+    Returns (B, Ns, D, n_scales * 256)."""
+
+    def __init__(self, *, nsample: int = 64, mlp: Sequence[int] = (64, 128, 256)):
+        super().__init__()
+        self.nsample = nsample
+        self.radii = tuple(s * CYLINDER_RADIUS for s in SCALES)
+        self.hmin = HMIN
+        self.hmax_list = HMAX_LIST
+        for ri in range(len(SCALES)):
+            self.add_module(f"mlp_scale{ri}", SharedMLP(3, mlp))
+
+    @torch.no_grad()
+    def folded_weights(self):
+        """Per scale, every layer's (W_eff (I, O), b_eff) with BN folded in
+        (eval only: the kernel has no backward)."""
+        return tuple(
+            tuple(block.bn.fold(block.dense.weight) for block in getattr(self, f"mlp_scale{ri}"))
+            for ri in range(len(self.radii))
+        )
+
+    def forward(self, seed_xyz, cloud_xyz, vp_rot, *, plain: bool = False) -> torch.Tensor:
+        cloud_xyz, seed_xyz, vp_rot = (t.contiguous() for t in (cloud_xyz, seed_xyz, vp_rot))
+        query = multi_cylinder_group_plain if plain else multi_cylinder_group
+        idx, _ = query(cloud_xyz, seed_xyz, vp_rot, self.radii, self.hmin, self.hmax_list, self.nsample)
+        b, n_r, n_h, ns, k = idx.shape
+        idx_t = idx.permute(0, 3, 1, 2, 4).reshape(b, ns * n_r * n_h, k)  # (B, S*R*H, K)
+        grouped = group_points(cloud_xyz, idx_t).reshape(b, ns, n_r, n_h, k, 3)
+        mlp = width_mlp_fused_rot_plain if plain else width_mlp_fused_rot
+        return mlp(grouped, seed_xyz, vp_rot, self.folded_weights())
+
+
+class GraspParametersHead(nn.Module):
+    """Score / angle-class / width head: (B, Ns, D, 256) -> dict of (B, Ns, A, D)."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv1 = MLPBlock(256, 128)
+        self.conv2 = MLPBlock(128, 128)
+        self.conv3 = nn.Linear(128, 3 * NUM_ANGLE)
+
+    def forward(self, vp_features: torch.Tensor) -> dict:
+        x = self.conv3(self.conv2(self.conv1(vp_features)))
+        b, ns, d, _ = x.shape
+        x = x.reshape(b, ns, d, 3, NUM_ANGLE).movedim(2, -1)  # (B, Ns, 3, A, D)
+        return {
+            "grasp_score_pred": x[:, :, 0],
+            "grasp_angle_cls_pred": x[:, :, 1],
+            "grasp_width_pred": x[:, :, 2],
+        }
+
+
+class ToleranceHead(nn.Module):
+    """Per-angle tolerance head: (B, Ns, D, 256) -> (B, Ns, A, D)."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv1 = MLPBlock(256, 128)
+        self.conv2 = MLPBlock(128, 128)
+        self.conv3 = nn.Linear(128, NUM_ANGLE)
+
+    def forward(self, vp_features: torch.Tensor) -> dict:
+        x = self.conv3(self.conv2(self.conv1(vp_features)))
+        return {"grasp_tolerance_pred": x.movedim(2, -1)}

@@ -1,0 +1,54 @@
+"""Set abstraction and feature propagation, channels-last
+(port of graspbalance_tpu/nn/sa_fp.py: ``SetAbstraction`` without the opt-in
+fused branch, and ``FeaturePropagation``)."""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from graspbalance_tpu_torch import ops
+from graspbalance_tpu_torch.nn.layers import SharedMLP
+from graspbalance_tpu_torch.ops.interpolate import inverse_distance_weights, three_interpolate
+
+
+class SetAbstraction(nn.Module):
+    """Sampled centers + ball-query grouping + shared MLP + max pool, with
+    use_xyz and normalize_xyz as the DRP backbone sets them: the grouped
+    offsets are divided by the radius and concatenated with the features.
+    The centers are given as FPS indices ``inds``."""
+
+    def __init__(self, in_features: int, radius: float, nsample: int, mlp: Sequence[int]):
+        super().__init__()
+        self.radius = radius
+        self.nsample = nsample
+        self.mlp = SharedMLP(3 + in_features, mlp)
+
+    def forward(self, xyz: torch.Tensor, features: torch.Tensor | None, inds: torch.Tensor):
+        """xyz (B, N, 3); features (B, N, C) or None; inds (B, npoint).
+        Returns (new_xyz (B, npoint, 3), new_features (B, npoint, C_out))."""
+        new_xyz = ops.gather_points(xyz, inds)
+        idx = ops.ball_query(xyz, new_xyz, self.radius, self.nsample)
+        grouped = (ops.group_points(xyz, idx) - new_xyz.unsqueeze(2)) / self.radius
+        if features is not None:
+            grouped = torch.cat([grouped, ops.group_points(features, idx)], dim=-1)
+        return new_xyz, self.mlp(grouped).amax(dim=2)
+
+
+class FeaturePropagation(nn.Module):
+    """Inverse-distance 3-NN upsampling + skip concat + shared MLP."""
+
+    def __init__(self, in_features: int, mlp: Sequence[int]):
+        super().__init__()
+        self.mlp = SharedMLP(in_features, mlp)
+
+    def forward(self, unknown, known, unknown_feats, known_feats):
+        """unknown (B, n, 3), known (B, m, 3), unknown_feats (B, n, C1) or
+        None, known_feats (B, m, C2) -> (B, n, mlp[-1])."""
+        dist, idx = ops.three_nn(unknown, known)
+        interp = three_interpolate(known_feats, idx, inverse_distance_weights(dist))
+        if unknown_feats is not None:
+            interp = torch.cat([interp, unknown_feats], dim=-1)
+        return self.mlp(interp)

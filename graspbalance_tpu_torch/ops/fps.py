@@ -1,0 +1,79 @@
+"""Furthest point sampling (port of graspbalance_tpu/ops/fps.py).
+
+Semantics of the reference kernel: ``idx[0] = 0``; greedy max-min over
+squared distance with a running buffer initialised to 1e10; points with
+``|p|^2 <= 1e-3`` (near-origin padding) are never selected; ties go to the
+lowest index.
+
+``furthest_point_sample`` launches the CUDA kernel (``csrc/fps.cu``) on a
+CUDA tensor and runs ``furthest_point_sample_plain`` on a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from graspbalance_tpu_torch import _build
+
+INIT_DIST = 1e10
+ORIGIN_EPS = 1e-3
+MAX_POINTS = 32 * 1024  # the kernel keeps at most 32 distances per thread
+
+
+def _check_xyz(xyz: torch.Tensor) -> None:
+    if xyz.ndim != 3 or xyz.shape[-1] != 3:
+        raise ValueError(f"xyz must be (B, N, 3), got {tuple(xyz.shape)}")
+
+
+def initial_distances(xyz: torch.Tensor) -> torch.Tensor:
+    """(B, N, 3) -> (B, N) running distances before the first step: 1e10,
+    or -1 for a near-origin point (-1 survives every min(dist, d >= 0), so
+    such a point never wins)."""
+    x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
+    return torch.where(x * x + y * y + z * z > ORIGIN_EPS, INIT_DIST, -1.0).float()
+
+
+def furthest_point_sample_plain(xyz: torch.Tensor, num_samples: int) -> torch.Tensor:
+    """(B, N, 3) -> (B, num_samples) int32, one tensor step per sample.
+
+    The distance is written as ``dx*dx + dy*dy + dz*dz`` on coordinate
+    planes, so its rounding is fixed and matches the kernel bit for bit."""
+    _check_xyz(xyz)
+    xyz = xyz.float()
+    b = xyz.shape[0]
+    x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
+    dist = initial_distances(xyz)
+    out = torch.zeros((b, num_samples), dtype=torch.int32, device=xyz.device)
+    last = torch.zeros((b, 1), dtype=torch.int64, device=xyz.device)
+    for j in range(1, num_samples):
+        dx = x - x.gather(1, last)
+        dy = y - y.gather(1, last)
+        dz = z - z.gather(1, last)
+        dist = torch.minimum(dist, dx * dx + dy * dy + dz * dz)
+        last = torch.argmax(dist, dim=1, keepdim=True)  # first max: lowest index
+        out[:, j] = last[:, 0].to(torch.int32)
+    return out
+
+
+def furthest_point_sample(xyz: torch.Tensor, num_samples: int) -> torch.Tensor:
+    """Greedy FPS, (B, N, 3) f32 -> (B, num_samples) int32 indices."""
+    _check_xyz(xyz)
+    if xyz.device.type == "cpu":
+        return furthest_point_sample_plain(xyz, num_samples)
+    _build.require_cuda("xyz", xyz, torch.float32, 3)
+    b, n, _ = xyz.shape
+    if not 1 <= n <= MAX_POINTS:
+        raise ValueError(f"the FPS kernel takes 1..{MAX_POINTS} points, got {n}")
+    if num_samples < 1:
+        raise ValueError(f"num_samples must be >= 1, got {num_samples}")
+    planes = xyz.transpose(1, 2).contiguous()  # (B, 3, N)
+    dist0 = initial_distances(xyz).contiguous()
+    out = torch.empty((b, num_samples), dtype=torch.int32, device=xyz.device)
+    lib = _build.library()
+    with torch.cuda.device(xyz.device):
+        err = lib.gb_fps(
+            planes.data_ptr(), dist0.data_ptr(), out.data_ptr(), b, n, num_samples,
+            _build.stream_of(xyz),
+        )
+    _build.check(err, "fps")
+    return out

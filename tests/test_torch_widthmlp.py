@@ -1,0 +1,72 @@
+"""The port's fused width MLP (graspbalance_tpu_torch.ops.widthmlp) against
+the JAX package's Pallas kernel width_mlp_fused_rot in interpret mode, with
+the same BN-folded weights (random, non-trivial BN statistics).
+
+Tolerance: 1e-5 absolute and relative (f32; the products are summed in
+another order, and layer 0's rotation fold is formed by broadcast sums on
+one side and an einsum on the other)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from graspbalance_tpu.ops.pallas.widthmlp_kernel import width_mlp_fused_rot as j_width_mlp_fused_rot
+from graspbalance_tpu_torch.models.heads import MultiScaleWidthGrouping
+from graspbalance_tpu_torch.ops.widthmlp import (
+    width_mlp_fused_rot,
+    width_mlp_fused_rot_plain,
+)
+from graspbalance_tpu_torch.weights import init_random_
+
+TOL = 1e-5
+
+
+def _inputs(rng, b, s, r, h, k):
+    centers = (rng.random((b, s, 3)) - 0.5).astype(np.float32)
+    grouped = centers[:, :, None, None, None, :] + (
+        rng.standard_normal((b, s, r, h, k, 3)) * 0.05
+    ).astype(np.float32)
+    q, _ = np.linalg.qr(rng.standard_normal((b, s, 3, 3)))
+    return grouped.astype(np.float32), centers, q.astype(np.float32)
+
+
+@pytest.mark.parametrize(
+    "mlp,k",
+    [((8, 12, 16), 16), ((64, 128, 256), 64)],  # narrow, and the kernel's own widths
+)
+def test_width_mlp_matches_jax_kernel(rng, mlp, k):
+    head = init_random_(MultiScaleWidthGrouping(nsample=k, mlp=mlp), seed=3)
+    weights = head.folded_weights()
+    grouped, centers, rot = _inputs(rng, b=2, s=4, r=4, h=4, k=k)
+    j_weights = tuple(
+        tuple((jnp.asarray(w.numpy()), jnp.asarray(bias.numpy())) for w, bias in layers)
+        for layers in weights
+    )
+    want = np.asarray(
+        j_width_mlp_fused_rot(
+            jnp.asarray(grouped), jnp.asarray(centers), jnp.asarray(rot), j_weights, interpret=True
+        )
+    )
+    got = width_mlp_fused_rot(torch.from_numpy(grouped), torch.from_numpy(centers), torch.from_numpy(rot), weights)
+    assert got.shape == (2, 4, 4, 4 * mlp[-1])
+    assert np.abs(want).max() > 0.1  # the comparison is not between near-zeros
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
+
+
+def test_plain_seed_chunks_agree(rng):
+    """The plain version's seed chunking changes nothing."""
+    head = init_random_(MultiScaleWidthGrouping(nsample=8, mlp=(4, 6, 8)), seed=1)
+    grouped, centers, rot = (torch.from_numpy(a) for a in _inputs(rng, b=1, s=10, r=4, h=4, k=8))
+    whole = width_mlp_fused_rot_plain(grouped, centers, rot, head.folded_weights())
+    chunked = width_mlp_fused_rot_plain(grouped, centers, rot, head.folded_weights(), seed_chunk=3)
+    torch.testing.assert_close(chunked, whole, atol=0, rtol=0)
+
+
+def test_kernel_checks_shapes(rng):
+    head = init_random_(MultiScaleWidthGrouping(nsample=8, mlp=(4, 6, 8)), seed=1)
+    grouped, centers, rot = (torch.from_numpy(a) for a in _inputs(rng, b=1, s=2, r=4, h=4, k=8))
+    with pytest.raises(ValueError, match="centers"):
+        width_mlp_fused_rot(grouped, centers[:, :1], rot, head.folded_weights())
+    with pytest.raises(ValueError, match="one weight list per scale"):
+        width_mlp_fused_rot(grouped, centers, rot, head.folded_weights()[:3])
