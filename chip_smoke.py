@@ -3,23 +3,46 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path (graspbalance_tpu_torch): the full-width
-GraspBalance eval forward and pred_decode at bs=4 on 20,000-point synthetic
-scenes, with random weights from a seed. Phases, each fatal on failure:
+Drives the port's paths (graspbalance_tpu_torch) at full width on 20,000-point
+synthetic scenes, bs=4, with random weights from seeds: the GraspBalance eval
+forward + pred_decode (the main path), and the serving pipeline
+GraspInference without and with OBS (DSN + mean shift + object-balanced
+re-seeding, grasp NMS, the voxel-downsampled collision filter). Phases, each
+fatal on failure:
 
   1. print the card's name and power limit (nvidia-smi);
-  2. build the three CUDA kernels from csrc/*.cu and time the build;
-  3. with TF32 off, compare each kernel with its plain PyTorch version at
-     the main path's shapes: FPS indices exact, query indices exact and
+  2. build the six CUDA kernels from csrc/*.cu (one nvcc per source, all in
+     parallel) and time the build;
+  3. with TF32 off, compare the main path's kernels with their plain PyTorch
+     versions at its shapes: FPS indices exact, query indices exact and
      rotated coordinates within 1e-5, width MLP within 1e-4;
   4. run the forward + decode through the kernels, check that every kernel
-     was launched, run it again through the plain versions, and compare the
-     valid masks (exact) and the decoded grasps (equal within 1e-4 wherever
-     no decode argmax is a near tie); check every output is finite;
-  5. time the kernel path (clouds/s, p50 ms/scene) beside each kernel's and
-     plain version's time.
+     of that path was launched, run it again through the plain versions,
+     and compare the valid masks (exact) and the decoded grasps (equal
+     within 1e-4 wherever no decode argmax is a near tie); check every
+     output is finite;
+  5. time the main path (clouds/s, p50 ms/scene and the spread of the
+     calls);
+  6. compare the serving path's kernels with their plain versions at its
+     shapes: kNN on the DSN's (4, 2048) and (4, 1024) seed clouds (indices
+     exact, distances within 1e-6), the masked FPS on OBS's compacted slots
+     of the scenes' own objects (exact over the first max_needed slots), the
+     collision counts of phase 4's grasps against the voxel-downsampled
+     scenes (exact);
+  7. run GraspInference without and with OBS through the kernels (every
+     kernel of each path launched; all six on the OBS path) and through the
+     plain versions: segment labels and OBS seeds exact, decoded grasps as
+     in phase 4, the same keep masks from the kernel and the plain
+     postprocess on identical grasps, every output finite;
+  8. time both pipelines (clouds/s, p50 ms/scene, the share of postprocess
+     and of DSN + cluster + OBS, the NMS sweeps), then trace 3 calls of each
+     with torch.profiler: kernels, device ms and wall ms per call, the
+     card's busy share and the largest kernels, one JSON line per pipeline.
 
-Prints the kernel table as one JSON line, and as the last line
+Prints the kernel table as one JSON line (each kernel's launches on the OBS
+pipeline, its error against the plain version, its time, the plain
+version's, the card's least time for the work and, where one PyTorch call
+computes the same function, that call's time), and as the last line
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero before any
 result. Imports nothing of JAX.
 """
@@ -35,9 +58,21 @@ import time
 BATCH = 4
 NUM_POINTS = 20000
 SEED = 0
+# random DSN weights: a random head tends to put a whole scene in one class,
+# and with no foreground OBS sees no object and falls back to the identity
+# seeds; seeds 1-4 do that on these scenes, seed 5 marks objects in all four
+DSN_SEED = 5
 WIDTHMLP_TOL = 1e-4  # abs; f32 FMA order differs from the plain matmuls
 REL_TOL = 1e-5  # abs, metres; both sides round the same ops, any gap is a fault
 GRASP_TOL = 1e-4  # abs, on decoded grasps of seeds whose argmaxes agree
+KNN_DIST_TOL = 1e-6  # abs; both sides round the same ops
+MAIN_ITERS = 20  # timed forward + decode calls, after a warm-up
+PIPELINE_ITERS = 10  # timed GraspInference calls per pipeline, after a warm-up
+STAGE_REPS = 3  # calls averaged per stage of the stage shares
+# the card's peaks (NVIDIA H100 SXM data sheet, 700 W): device memory and
+# FP32 outside the tensor cores, the type every kernel here computes in
+PEAK_BYTES_S = 3.35e12
+PEAK_FP32_S = 67e12
 
 
 def require(cond: bool, msg: str) -> None:
@@ -60,10 +95,91 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def wall_ms(fn, reps: int = 1) -> float:
+    """Mean host time of fn() up to the card's end of it, over reps calls."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / reps
+
+
+def rate_line(iters: list[float]) -> str:
+    """clouds/s and p50 ms/scene over timed bs=BATCH calls (seconds), with
+    the spread of the calls."""
+    per_scene = sorted(t / BATCH * 1e3 for t in iters)
+    return (f"{BATCH * len(iters) / sum(iters):.3f} clouds/s, p50 {statistics.median(per_scene):.3f} "
+            f"ms/scene (min {per_scene[0]:.3f}, max {per_scene[-1]:.3f} over {len(iters)} calls)")
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least time the card could take (ms) and what binds it."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_FP32_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def argmax_margin(x, dim: int):
     """Gap between the largest and second-largest value along dim."""
     top2 = x.topk(2, dim=dim).values
     return top2.select(dim, 0) - top2.select(dim, 1)
+
+
+def compare_decoded(ep, ep_p, grasps, grasps_p, valid, valid_p, what: str) -> str:
+    """Kernel against plain decoded grasps: valid masks exact; a decode
+    argmax can only flip where its margin is at most twice the gap between
+    the two paths' inputs to it, so every seed whose grasp differs must be
+    such a near tie."""
+    import torch
+
+    require(torch.equal(valid, valid_p), f"{what}: valid masks differ between kernel and plain paths")
+    d_ang = float((ep["grasp_angle_cls_pred"] - ep_p["grasp_angle_cls_pred"]).abs().max())
+    d_score = float((ep["grasp_score_pred"] - ep_p["grasp_score_pred"]).abs().max())
+    firm = (argmax_margin(ep_p["grasp_angle_cls_pred"], 2) > 2 * d_ang).all(dim=-1)
+    ang = ep_p["grasp_angle_cls_pred"].argmax(dim=2, keepdim=True)
+    score_at = ep_p["grasp_score_pred"].gather(2, ang)[:, :, 0]
+    firm &= argmax_margin(score_at, 2) > 2 * d_score
+    row_err = (grasps - grasps_p).abs().amax(dim=-1)
+    differ = row_err > GRASP_TOL
+    require(not bool((differ & firm).any()),
+            f"{what}: decoded grasps differ by up to {float(row_err[firm].max())} on seeds with firm argmaxes")
+    require(float(differ.float().mean()) <= 0.05, f"{what}: {int(differ.sum())} decoded grasps differ")
+    require(bool(torch.isfinite(grasps).all()), f"{what}: non-finite grasps")
+    for key, v in ep.items():
+        if v is not None and v.is_floating_point():
+            require(bool(torch.isfinite(v).all()), f"{what}: non-finite values in {key}")
+    return (f"valid exact, grasps max err {float(row_err[~differ].max()):.3g} on "
+            f"{int((~differ).sum())}/{differ.numel()} seeds, {int(differ.sum())} near-tie seeds "
+            f"decode another angle or depth (head gaps angle {d_ang:.3g}, score {d_score:.3g})")
+
+
+def profile_pipelines(pipelines, cloud, calls: int = 3) -> None:
+    """torch.profiler over `calls` calls of each pipeline: kernels and
+    device (kernel) ms per call, beside the unprofiled wall ms per call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, infer in pipelines.items():
+        infer(cloud)
+        wall = wall_ms(lambda: infer(cloud), calls)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                infer(cloud)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / calls
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+        print(json.dumps({
+            "profile": name,
+            "kernels_per_call": sum(e.count for e in kernels) / calls,
+            "device_ms_per_call": dev_ms,
+            "wall_ms_per_call": wall,
+            "busy_share": dev_ms / wall,
+            "top": [[e.key[:70], e.self_device_time_total / 1e3 / calls, e.count // calls] for e in top],
+        }))
 
 
 def main() -> int:
@@ -75,10 +191,33 @@ def main() -> int:
         return 1
 
     from graspbalance_tpu_torch import _build
-    from graspbalance_tpu_torch.data.synthetic import SceneConfig, make_point_clouds
-    from graspbalance_tpu_torch.models import GraspBalance, pred_decode
-    from graspbalance_tpu_torch.ops.fps import furthest_point_sample, furthest_point_sample_plain
-    from graspbalance_tpu_torch.ops.gather import group_points
+    from graspbalance_tpu_torch.data.synthetic import SceneConfig, make_scenes
+    from graspbalance_tpu_torch.eval.collision import voxel_downsample_fixed
+    from graspbalance_tpu_torch.eval.obs import (
+        COMPACT_CAP,
+        FPS_CAP,
+        MAX_OBJECTS,
+        _compact_mask,
+        max_needed_steps,
+        object_balance_indices,
+        object_masks,
+    )
+    from graspbalance_tpu_torch.eval.pipeline import GraspInference
+    from graspbalance_tpu_torch.models import DSN, GraspBalance, pred_decode
+    from graspbalance_tpu_torch.ops.collision import (
+        N_PARAMS,
+        collision_counts,
+        collision_counts_plain,
+        pack_grasp_params,
+    )
+    from graspbalance_tpu_torch.ops.fps import (
+        furthest_point_sample,
+        furthest_point_sample_masked,
+        furthest_point_sample_masked_plain,
+        furthest_point_sample_plain,
+    )
+    from graspbalance_tpu_torch.ops.gather import gather_points, group_points
+    from graspbalance_tpu_torch.ops.knn import knn, knn_plain
     from graspbalance_tpu_torch.ops.multicyl import multi_cylinder_group, multi_cylinder_group_plain
     from graspbalance_tpu_torch.ops.widthmlp import width_mlp_fused_rot, width_mlp_fused_rot_plain
     from graspbalance_tpu_torch.weights import init_random_
@@ -98,18 +237,19 @@ def main() -> int:
     _build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s ({_build.library_path()})")
 
-    # 3. each kernel against its plain version, at the main path's shapes
+    # 3. each main-path kernel against its plain version, at the path's shapes
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cloud = torch.from_numpy(
-        make_point_clouds(SEED, BATCH, SceneConfig(num_points=NUM_POINTS))
-    ).to(dev)
+    clouds_np, instance_np = make_scenes(SEED, BATCH, SceneConfig(num_points=NUM_POINTS))
+    cloud = torch.from_numpy(clouds_np).to(dev)
+    instance_label = torch.from_numpy(instance_np).to(dev)
     model = init_random_(GraspBalance(), SEED).to(dev).eval()
     wg = model.width_grouping
     m = model.backbone.num_seed
+    n_fps = model.backbone.stages[0][0]
 
-    fps_k = furthest_point_sample(cloud, model.backbone.stages[0][0])
-    fps_p = furthest_point_sample_plain(cloud, model.backbone.stages[0][0])
+    fps_k = furthest_point_sample(cloud, n_fps)
+    fps_p = furthest_point_sample_plain(cloud, n_fps)
     fps_err = int((fps_k - fps_p).abs().max())
     require(torch.equal(fps_k, fps_p), f"FPS kernel != plain: {int((fps_k != fps_p).sum())} indices differ")
 
@@ -141,14 +281,33 @@ def main() -> int:
 
     with torch.no_grad():
         times = {
-            "fps": (cuda_ms(lambda: furthest_point_sample(cloud, 2048), 5),
-                    cuda_ms(lambda: furthest_point_sample_plain(cloud, 2048), 1)),
+            "fps": (cuda_ms(lambda: furthest_point_sample(cloud, n_fps), 5),
+                    cuda_ms(lambda: furthest_point_sample_plain(cloud, n_fps), 1), None),
             "multicyl": (cuda_ms(lambda: multi_cylinder_group(*qargs), 5),
-                         cuda_ms(lambda: multi_cylinder_group_plain(*qargs), 2)),
+                         cuda_ms(lambda: multi_cylinder_group_plain(*qargs), 2), None),
             "widthmlp": (cuda_ms(lambda: width_mlp_fused_rot(grouped, seeds, rot, weights), 5),
-                         cuda_ms(lambda: width_mlp_fused_rot_plain(grouped, seeds, rot, weights), 2)),
+                         cuda_ms(lambda: width_mlp_fused_rot_plain(grouped, seeds, rot, weights), 2), None),
         }
     errs = {"fps": fps_err, "multicyl": rel_err, "widthmlp": mlp_err}
+
+    # least work of each main-path kernel on these inputs
+    n_in = cloud.numel() * 4
+    bounds = {
+        # every step updates every point's distance (3 sub, 3 mul, 2 add,
+        # min) and compares it: 10 operations
+        "fps": bound(n_in + fps_k.numel() * 4, (n_fps - 1) * BATCH * NUM_POINTS * 10),
+    }
+    # the query must scan each seed's points up to its last combo's k-th hit
+    # (all N where a combo has fewer): 18 operations for the rotated point,
+    # 3 for y^2 + z^2, 3 comparisons per combo
+    full = idx_k[..., -1] != idx_k[..., 0]
+    scan = torch.where(full, idx_k[..., -1].long() + 1, NUM_POINTS).amax(dim=(1, 2))
+    n_combo = n_r * n_h
+    bounds["multicyl"] = bound(n_in + (seeds.numel() + rot.numel() + idx_k.numel()) * 4,
+                               float(scan.sum()) * (21 + 3 * n_combo))
+    macs = sum(w.shape[0] * w.shape[1] for scale in weights for w, _ in scale)
+    bounds["widthmlp"] = bound(grouped.numel() * 4 + mlp_k.numel() * 4,
+                               2.0 * macs * BATCH * m * n_h * k)
 
     # 4. the main path through the kernels, then through the plain versions
     torch.cuda.synchronize()
@@ -156,55 +315,205 @@ def main() -> int:
     ep = model(cloud)
     grasps, valid = pred_decode(ep)
     torch.cuda.synchronize()
-    launches = dict(_build.launches)
-    require(all(launches[n] > 0 for n in _build.KERNELS), f"a kernel was not launched: {launches}")
+    main_launches = dict(_build.launches)
+    require(all(main_launches[n] > 0 for n in ("fps", "multicyl", "widthmlp")),
+            f"a kernel of the main path was not launched: {main_launches}")
     require(grasps.shape == (BATCH, m, 17) and valid.shape == (BATCH, m), "decode shapes")
-    for key, v in ep.items():
-        if v is not None and v.is_floating_point():
-            require(bool(torch.isfinite(v).all()), f"non-finite values in {key}")
-    require(bool(torch.isfinite(grasps).all()), "non-finite grasps")
-
     ep_p = model(cloud, plain=True)
     grasps_p, valid_p = pred_decode(ep_p)
-    require(torch.equal(valid, valid_p), "valid masks differ between kernel and plain paths")
-    # a decode argmax can only flip where its margin is at most twice the gap
-    # between the two paths' inputs to it: every seed whose grasp differs
-    # must be such a near tie
-    d_ang = float((ep["grasp_angle_cls_pred"] - ep_p["grasp_angle_cls_pred"]).abs().max())
-    d_score = float((ep["grasp_score_pred"] - ep_p["grasp_score_pred"]).abs().max())
-    firm = (argmax_margin(ep_p["grasp_angle_cls_pred"], 2) > 2 * d_ang).all(dim=-1)
-    ang = ep_p["grasp_angle_cls_pred"].argmax(dim=2, keepdim=True)
-    score_at = ep_p["grasp_score_pred"].gather(2, ang)[:, :, 0]
-    firm &= argmax_margin(score_at, 2) > 2 * d_score
-    row_err = (grasps - grasps_p).abs().amax(dim=-1)
-    differ = row_err > GRASP_TOL
-    require(not bool((differ & firm).any()),
-            f"decoded grasps differ by up to {float(row_err[firm].max())} on seeds with firm argmaxes")
-    require(float(differ.float().mean()) <= 0.05, f"{int(differ.sum())} decoded grasps differ")
-    grasp_err = float(row_err[~differ].max())
-    print(f"forward+decode: launches {launches}; {int(valid.sum())} valid seeds; "
-          f"kernel vs plain: valid exact, grasps max err {grasp_err:.3g} on "
-          f"{int((~differ).sum())}/{differ.numel()} seeds, {int(differ.sum())} near-tie seeds "
-          f"decode another angle or depth (head gaps angle {d_ang:.3g}, score {d_score:.3g})")
+    print(f"forward+decode: launches {main_launches}; {int(valid.sum())} valid seeds; kernel vs plain: "
+          + compare_decoded(ep, ep_p, grasps, grasps_p, valid, valid_p, "forward+decode"))
 
-    # 5. timing of the kernel path
+    # 5. timing of the main path
     iters = []
-    for _ in range(6):
+    for _ in range(MAIN_ITERS + 1):
         t1 = time.perf_counter()
         pred_decode(model(cloud))
         torch.cuda.synchronize()
         iters.append(time.perf_counter() - t1)
-    iters = iters[1:]
-    p50_ms = statistics.median(iters) / BATCH * 1e3
-    clouds_s = BATCH * len(iters) / sum(iters)
-    print(f"main path bs={BATCH}, {NUM_POINTS} pts: {clouds_s:.3f} clouds/s, "
-          f"p50 {p50_ms:.3f} ms/scene ({smi})")
+    print(f"main path bs={BATCH}, {NUM_POINTS} pts: {rate_line(iters[1:])} ({smi})")
 
-    sources = {"fps": "fps.cu", "multicyl": "multicyl.cu", "widthmlp": "widthmlp.cu"}
+    # 6. the serving path's kernels against their plain versions, at its shapes
+    dsn = init_random_(DSN(), DSN_SEED).to(dev).eval()
+    seg_labels, _ = GraspInference(model, dsn, use_obs=True).segment(cloud)
+    require(bool((seg_labels.amax(dim=1) > 0).all()),
+            f"the DSN from seed {DSN_SEED} marks no foreground in some scene: OBS would see no object")
+    print(f"DSN weights from seed {DSN_SEED}: {seg_labels.amax(dim=1).tolist()} clusters per scene")
+    with torch.no_grad():
+        knn_errs, knn_shapes = [], []
+        xyz_dsn = gather_points(cloud, fps_k[:, : dsn.pt_stages[0][0]]).contiguous()
+        for npoint in (dsn.pt_stages[0][0], dsn.pt_stages[1][0]):  # nested prefixes
+            x = xyz_dsn[:, :npoint].contiguous()
+            d_k, i_k = knn(x, x, dsn.backbone.knn)
+            d_p, i_p = knn_plain(x, x, dsn.backbone.knn)
+            require(torch.equal(i_k, i_p), f"kNN kernel != plain at {tuple(x.shape)}: "
+                                           f"{int((i_k != i_p).sum())} indices differ")
+            knn_errs.append(float((d_k - d_p).abs().max()))
+            require(knn_errs[-1] <= KNN_DIST_TOL, f"kNN distance error {knn_errs[-1]} > {KNN_DIST_TOL}")
+            knn_shapes.append(x)
+        kk = dsn.backbone.knn
+        times["knn"] = (
+            sum(cuda_ms(lambda x=x: knn(x, x, kk), 5) for x in knn_shapes),
+            sum(cuda_ms(lambda x=x: knn_plain(x, x, kk), 2) for x in knn_shapes),
+            sum(cuda_ms(lambda x=x: torch.cdist(x, x).topk(kk, dim=-1, largest=False), 5)
+                for x in knn_shapes),
+        )
+        errs["knn"] = max(knn_errs)
+        # 3 sub, 3 mul, 2 add and one comparison per (query, reference) pair
+        bounds["knn"] = bound(
+            sum(x.numel() * 4 + x.shape[0] * x.shape[1] * kk * 8 for x in knn_shapes),
+            sum(x.shape[0] * x.shape[1] ** 2 * 9 for x in knn_shapes),
+        )
+        print(f"kNN: {[tuple(x.shape) for x in knn_shapes]} k={kk} idx exact, "
+              f"dist max err {errs['knn']:.3g}")
+
+        # OBS's masked FPS on the compacted slots of the scenes' own objects
+        o, fps_cap = MAX_OBJECTS, FPS_CAP
+        masks = object_masks(instance_label)
+        cxyz, _, cvalid = _compact_mask(cloud, masks, COMPACT_CAP)
+        cxyz = cxyz.reshape(BATCH * o, COMPACT_CAP, 3).contiguous()
+        cvalid = cvalid.reshape(BATCH * o, COMPACT_CAP).contiguous()
+        present = masks.any(dim=2)
+        kmin = int(present.sum(dim=1).min())
+        needed_t = max_needed_steps(present, m)
+        needed = int(needed_t)
+        mf_k = furthest_point_sample_masked(cxyz, cvalid, fps_cap, max_needed=needed_t)
+        mf_p = furthest_point_sample_masked_plain(cxyz, cvalid, fps_cap)
+        require(torch.equal(mf_k[:, :needed], mf_p[:, :needed]),
+                f"masked FPS kernel != plain over the first {needed} slots: "
+                f"{int((mf_k[:, :needed] != mf_p[:, :needed]).sum())} differ")
+        errs["fps_masked"] = int((mf_k[:, :needed] - mf_p[:, :needed]).abs().max())
+        times["fps_masked"] = (
+            cuda_ms(lambda: furthest_point_sample_masked(cxyz, cvalid, fps_cap, max_needed=needed_t), 5),
+            cuda_ms(lambda: furthest_point_sample_masked_plain(cxyz, cvalid, fps_cap), 1),
+            None,
+        )
+        n_valid = float(cvalid.sum())  # each step updates each valid point: 10 operations
+        bounds["fps_masked"] = bound(cxyz.numel() * 4 + cvalid.numel() + mf_k.numel() * 4,
+                                     (needed - 1) * n_valid * 10)
+        print(f"masked FPS: {tuple(cxyz.shape)} -> {fps_cap}, {kmin} objects in the sparsest scene, "
+              f"exact over max_needed={needed} slots ({int(n_valid)} valid points in {BATCH * o} rows)")
+
+        # the collision counts of phase 4's grasps on the downsampled scenes
+        s_ds, s_valid = voxel_downsample_fixed(cloud)
+        params = pack_grasp_params(grasps, 0.03, 0.01, 0.06)
+        cc_k = collision_counts(s_ds, s_valid, params)
+        cc_p = collision_counts_plain(s_ds, s_valid, params)
+        require(torch.equal(cc_k, cc_p), f"collision counts kernel != plain: {int((cc_k != cc_p).sum())} differ")
+        errs["collision"] = float((cc_k - cc_p).abs().max())
+        times["collision"] = (
+            cuda_ms(lambda: collision_counts(s_ds, s_valid, params), 5),
+            cuda_ms(lambda: collision_counts_plain(s_ds, s_valid, params), 2),
+            None,
+        )
+        n_vox = float(s_valid.sum())
+        # per (grasp, valid point): 18 operations for the gripper-frame
+        # point, 12 comparisons, 6 count updates
+        bounds["collision"] = bound(s_ds.numel() * 4 + s_valid.numel() + params.numel() * 4 + cc_k.numel() * 4,
+                                    n_vox * grasps.shape[1] * 36)
+        print(f"collision counts: {BATCH} x {grasps.shape[1]} grasps x {int(n_vox)} valid voxels "
+              f"(of {BATCH * NUM_POINTS} points; {N_PARAMS} params) exact; "
+              f"max overall count {int(cc_k[..., 4].max())}")
+
+    # 7. GraspInference without and with OBS, through the kernels and plain
+    pipelines = {
+        "no_obs": GraspInference(model),
+        "obs": GraspInference(model, dsn, use_obs=True),
+    }
+    path_launches = {}
+    with torch.no_grad():
+        for name, infer in pipelines.items():
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            g_np, keep_np = infer(cloud)
+            torch.cuda.synchronize()
+            path_launches[name] = dict(_build.launches)
+            used = _build.KERNELS if name == "obs" else ("fps", "multicyl", "widthmlp", "collision")
+            require(all(path_launches[name][n] > 0 for n in used),
+                    f"{name}: a kernel of the path was not launched: {path_launches[name]}")
+            require(g_np.shape == (BATCH, m, 17) and keep_np.shape == (BATCH, m), f"{name}: output shapes")
+            require(bool(torch.isfinite(torch.from_numpy(g_np)).all()), f"{name}: non-finite grasps")
+
+            # the same stages, kernel against plain
+            msg = ""
+            if infer.use_obs:
+                labels_k, sa_k = infer.segment(cloud)
+                labels_p, sa_p = infer.segment(cloud, plain=True)
+                require(torch.equal(sa_k, sa_p), f"{name}: shared FPS differs")
+                require(torch.equal(labels_k, labels_p), f"{name}: segment labels differ between kernel and plain")
+                obs_k = object_balance_indices(cloud, labels_k, num_seed=m)
+                obs_p = object_balance_indices(cloud, labels_k, num_seed=m, plain=True)
+                require(torch.equal(obs_k, obs_p), f"{name}: OBS seeds differ between kernel and plain")
+                msg = (f"labels exact ({int(labels_k.amax(dim=1).min())}-{int(labels_k.amax(dim=1).max())} "
+                       f"clusters per scene), OBS seeds exact; ")
+            ep = infer.forward(cloud)
+            ep_p = infer.forward(cloud, plain=True)
+            g, v = pred_decode(ep)
+            g_p, v_p = pred_decode(ep_p)
+            msg += compare_decoded(ep, ep_p, g, g_p, v, v_p, name)
+            keep_k = infer.postprocess(g, v, cloud)
+            keep_p = infer.postprocess(g, v, cloud, plain=True)
+            require(torch.equal(keep_k, keep_p), f"{name}: keep masks differ on identical grasps")
+            # the same with every seed valid, so that NMS and the collision
+            # filter decide every grasp whatever the random objectness says
+            all_valid = torch.ones_like(v)
+            keep_all_k = infer.postprocess(g, all_valid, cloud)
+            keep_all_p = infer.postprocess(g, all_valid, cloud, plain=True)
+            require(torch.equal(keep_all_k, keep_all_p), f"{name}: keep masks differ on identical all-valid grasps")
+            keep_e2e_p = infer.postprocess(g_p, v_p, cloud, plain=True)
+            print(f"GraspInference {name}: launches {path_launches[name]}; {msg}; keep masks equal on "
+                  f"identical grasps ({int(keep_k.sum())} kept of {int(v.sum())} valid; with every seed "
+                  f"valid {int(keep_all_k.sum())} of {v.numel()} kept); "
+                  f"end to end {int((keep_k != keep_e2e_p).sum())} keep entries differ")
+
+    # 8. timing of both pipelines
+    for name, infer in pipelines.items():
+        iters = []
+        for _ in range(PIPELINE_ITERS + 1):
+            t1 = time.perf_counter()
+            infer(cloud)
+            iters.append(time.perf_counter() - t1)
+        # stage shares: the pipeline's own steps, each timed up to the card's
+        # end of it; a stage that runs inside another is subtracted from it
+        with torch.no_grad():
+            stats = {}
+            parts = {}
+            st = {}
+            if infer.use_obs:
+                parts["shared fps"] = wall_ms(lambda: infer.sample(cloud), STAGE_REPS)
+                parts["dsn + cluster"] = wall_ms(lambda: st.update(seg=infer.segment(cloud)), STAGE_REPS)
+                parts["dsn + cluster"] -= parts["shared fps"]
+                parts["obs"] = wall_ms(lambda: object_balance_indices(cloud, st["seg"][0], num_seed=m), STAGE_REPS)
+            parts["forward"] = wall_ms(lambda: st.update(ep=infer.forward(cloud)), STAGE_REPS)
+            # the OBS forward runs the segment and OBS inside it
+            parts["forward"] -= sum(parts.get(k, 0.0) for k in ("shared fps", "dsn + cluster", "obs"))
+            parts["decode"] = wall_ms(lambda: st.update(zip(("g", "v"), pred_decode(st["ep"]))), STAGE_REPS)
+            parts["postprocess"] = wall_ms(lambda: infer.postprocess(st["g"], st["v"], cloud, stats=stats),
+                                           STAGE_REPS)
+            all_stats = {}
+            post_all = wall_ms(lambda: infer.postprocess(st["g"], torch.ones_like(st["v"]), cloud,
+                                                         stats=all_stats), STAGE_REPS)
+        total = sum(parts.values())
+        shares = ", ".join(f"{k} {v:.3f} ms ({v / total:.1%})" for k, v in parts.items())
+        seg_share = sum(parts.get(k, 0.0) for k in ("dsn + cluster", "obs")) / total
+        print(f"GraspInference {name} bs={BATCH}, {NUM_POINTS} pts: {rate_line(iters[1:])} "
+              f"({smi}); stages (ms per call, mean of {STAGE_REPS}) {shares}; postprocess share "
+              f"{parts['postprocess'] / total:.1%}, DSN+cluster+OBS share {seg_share:.1%}; "
+              f"NMS sweeps {stats['sweeps']}; postprocess with every seed valid {post_all:.3f} ms, "
+              f"{all_stats['sweeps']} NMS sweeps")
+
+    with torch.no_grad():
+        profile_pipelines(pipelines, cloud)
+
+    sources = {"fps": "fps.cu", "multicyl": "multicyl.cu", "widthmlp": "widthmlp.cu",
+               "knn": "knn.cu", "fps_masked": "fps.cu", "collision": "collision.cu"}
     replaces = {
         "fps": "graspbalance_tpu/ops/pallas/fps_kernel.py:357",
         "multicyl": "graspbalance_tpu/ops/pallas/multicyl_kernel.py:212",
         "widthmlp": "graspbalance_tpu/ops/pallas/widthmlp_kernel.py:197",
+        "knn": "graspbalance_tpu/ops/pallas/knn_kernel.py:80",
+        "fps_masked": "graspbalance_tpu/ops/pallas/fps_kernel.py:300",
+        "collision": "graspbalance_tpu/ops/pallas/collision_kernel.py:132",
     }
     table = [
         {
@@ -212,10 +521,13 @@ def main() -> int:
             "route": "cuda",
             "source": f"graspbalance_tpu_torch/csrc/{sources[name]}",
             "replaces": replaces[name],
-            "launches": launches[name],
+            "launches": path_launches["obs"][name],
             "max_abs_err": errs[name],
             "ms": times[name][0],
             "plain_ms": times[name][1],
+            "bound_ms": bounds[name][0],
+            "bound_by": bounds[name][1],
+            "library_ms": times[name][2],
         }
         for name in _build.KERNELS
     ]

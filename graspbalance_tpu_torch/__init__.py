@@ -1,5 +1,6 @@
-"""graspbalance_tpu_torch: the GraspBalance eval forward and decode in
-PyTorch, with hand-written CUDA kernels for an NVIDIA H100 (sm_90a).
+"""graspbalance_tpu_torch: the GraspBalance eval forward, decode and serving
+pipeline in PyTorch, with hand-written CUDA kernels for an NVIDIA H100
+(sm_90a).
 
 A port of ``graspbalance_tpu`` (JAX), which stays the reference: each module
 here mirrors the one at the same path there, keeps its channels-last
@@ -8,13 +9,18 @@ after the flax tree (``weights.py`` bridges JAX variables into a
 ``state_dict``). This package imports torch and numpy, never jax.
 
 Layout:
-  ops/      FPS, queries, gathers, three-NN interpolation, and the wrappers of
-            the three CUDA kernels (``csrc/*.cu``, built by ``_build.py``)
+  ops/      FPS, queries, gathers, kNN, three-NN interpolation, and the
+            wrappers of the six CUDA kernels (``csrc/*.cu``, built by
+            ``_build.py``): FPS and its masked mode, the multi-cylinder
+            query, the width MLP, kNN, the collision counts
   nn/       BatchNorm / MLPBlock / SharedMLP, set abstraction and feature
             propagation
-  models/   DRP backbone, grasp heads, GraspBalance eval forward, pred_decode
+  models/   DRP backbone, grasp heads, GraspBalance eval forward (with OBS
+            re-seeding), pred_decode, the point-transformer DSN
+  eval/     grasp NMS, voxel downsample + collision filter, mean shift, OBS,
+            and the end-to-end GraspInference pipeline
   labels/   grasp view geometry
-  data/     synthetic scene clouds
+  data/     synthetic scene clouds and instance labels
 """
 
 __version__ = "0.1.0"

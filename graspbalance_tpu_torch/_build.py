@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels and load them.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared library
-with a plain C interface, at first use, into ``_build/<hash of the sources
-and flags>/`` beside this file; the library is then loaded with ``ctypes``.
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process (all
+started together) and the objects are linked into one shared library with a
+plain C interface, at first use, into ``_build/<hash of the sources and
+flags>/`` beside this file; the library is then loaded with ``ctypes``.
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check`` turns a non-zero code into an exception.
 
@@ -26,9 +27,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
-KERNELS = ("fps", "multicyl", "widthmlp")
+KERNELS = ("fps", "multicyl", "widthmlp", "knn", "fps_masked", "collision")
 
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
@@ -39,6 +40,9 @@ _SIGNATURES = {
     "gb_fps": (_P, _P, _P, _I, _I, _I, _P),
     "gb_multicyl": (_P, _P, _P, _P, _P, ctypes.c_float, _I, _P, _P, _I, _I, _I, _I, _P),
     "gb_widthmlp": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "gb_knn": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "gb_fps_masked": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "gb_collision": (_P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 
@@ -72,9 +76,17 @@ def library() -> ctypes.CDLL:
     out = library_path()
     if not out.exists():
         out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        sources = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-        subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources], check=True)
+        nvcc, tag = _nvcc(), os.getpid()
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = out.with_name(f"{src.stem}.{tag}.o")
+            objs.append(str(obj))
+            procs.append(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]))
+        failed = [p.args[-1] for p in procs if p.wait() != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}")
+        tmp = out.with_name(f"{out.name}.{tag}.tmp")
+        subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *objs], check=True)
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _SIGNATURES.items():

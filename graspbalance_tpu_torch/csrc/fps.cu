@@ -1,8 +1,10 @@
-// Greedy furthest point sampling, (B, N, 3) f32 -> (B, m) int32.
+// Greedy furthest point sampling, (B, N, 3) f32 -> (B, m) int32, and its
+// masked mode over per-row valid subsets.
 //
 // Replaces graspbalance_tpu/ops/pallas/fps_kernel.py:fps_pallas_2d_batched,
 // and with it the same function in the older layouts fps_pallas_2d and
-// fps_pallas.
+// fps_pallas; the masked mode (gb_fps_masked) replaces
+// fps_pallas_2d_batched_masked, OBS's per-object FPS.
 //
 // Semantics: idx[0] = 0; the running distance starts at 1e10; a point with
 // |p|^2 <= 1e-3 is never selected (its distance starts at -1, and
@@ -28,6 +30,15 @@
 // marked __restrict__: with it, nvcc kept more values live across the step
 // loop and spilled at the 64-register cap of a 1024-thread block (12.0 ms
 // against 7.6 ms at (4, 20000) -> 2048 on an NVIDIA H100 80GB HBM3, 700 W).
+//
+// Masked mode: the initial-distance plane carries validity (-1 for an
+// invalid point, as above); the seed is each row's first valid index (index
+// 0 for a row with none), and the step count is read from a device int32,
+// max_needed, clamped to [1, m], so that OBS launches without a host sync.
+// Slots from max_needed on are written as 0 (the caller promises not to read
+// them). OBS runs S = B x 16 rows of N = 4096 compacted points: one
+// 512-thread block per row, 8 distances per thread, so that each step's
+// reduction spans 16 warps rather than 32.
 
 #include <cuda_runtime.h>
 
@@ -36,8 +47,8 @@
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = 1024;       // main path: (4, 20000)
+constexpr int kMaskedThreads = 512;  // OBS: (64, 4096)
 
 __device__ __forceinline__ float sq3(float x, float y, float z) {
   return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
@@ -60,10 +71,11 @@ __device__ __forceinline__ void warp_best(float& v, int& i) {
   }
 }
 
-template <int P>
-__global__ void __launch_bounds__(kThreads, 1)
+template <int T, int P, bool MASKED>
+__global__ void __launch_bounds__(T, 1)
     fps_kernel(const float* planes, const float* __restrict__ dist0, int n, int m,
-               int32_t* __restrict__ out) {
+               const int32_t* __restrict__ needed, int32_t* __restrict__ out) {
+  constexpr int kWarps = T / 32;
   const float* px = planes + static_cast<size_t>(blockIdx.x) * 3 * n;
   const float* d0 = dist0 + static_cast<size_t>(blockIdx.x) * n;
   const float* py = px + n;
@@ -73,25 +85,43 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int lane = t & 31;
   const int warp = t >> 5;
 
-  __shared__ float s_val[kWarps];
-  __shared__ int s_idx[kWarps];
+  __shared__ float s_val[32];
+  __shared__ int s_idx[32];
   __shared__ int s_best;
 
   float dist[P];
 #pragma unroll
   for (int p = 0; p < P; ++p) {
-    const int i = t + p * kThreads;
+    const int i = t + p * T;
     dist[p] = i < n ? d0[i] : -1.0f;
   }
-  if (t == 0) o[0] = 0;
 
-  float lx = px[0], ly = py[0], lz = pz[0];
-  for (int j = 1; j < m; ++j) {
+  int seed = 0;
+  int steps = m;
+  if (MASKED) {
+    // seed: the first valid index (0 when the row has none)
+    int first = INT_MAX;
+#pragma unroll
+    for (int p = P - 1; p >= 0; --p) {
+      if (dist[p] > 0.0f) first = t + p * T;
+    }
+    if (t == 0) s_best = INT_MAX;
+    __syncthreads();
+    if (first != INT_MAX) atomicMin(&s_best, first);
+    __syncthreads();
+    seed = s_best == INT_MAX ? 0 : s_best;
+    steps = min(max(*needed, 1), m);
+    for (int j = steps + t; j < m; j += T) o[j] = 0;
+  }
+  if (t == 0) o[0] = seed;
+
+  float lx = px[seed], ly = py[seed], lz = pz[seed];
+  for (int j = 1; j < steps; ++j) {
     float bv = -2.0f;  // below every running distance (>= -1)
     int bi = INT_MAX;
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      const int i = t + p * kThreads;
+      const int i = t + p * T;
       if (i < n) {
         const float d = sq3(__fsub_rn(px[i], lx), __fsub_rn(py[i], ly),
                             __fsub_rn(pz[i], lz));
@@ -110,8 +140,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     __syncthreads();
     if (warp == 0) {
-      bv = s_val[lane];
-      bi = s_idx[lane];
+      bv = lane < kWarps ? s_val[lane] : -2.0f;
+      bi = lane < kWarps ? s_idx[lane] : INT_MAX;
       warp_best(bv, bi);
       if (lane == 0) {
         s_best = bi;
@@ -126,10 +156,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int P>
-cudaError_t launch(const float* planes, const float* dist0, int32_t* out, int b, int n, int m,
-                   cudaStream_t stream) {
-  fps_kernel<P><<<b, kThreads, 0, stream>>>(planes, dist0, n, m, out);
+template <int T, int P, bool MASKED>
+cudaError_t launch(const float* planes, const float* dist0, const int32_t* needed, int32_t* out,
+                   int b, int n, int m, cudaStream_t stream) {
+  fps_kernel<T, P, MASKED><<<b, T, 0, stream>>>(planes, dist0, n, m, needed, out);
   return cudaGetLastError();
 }
 
@@ -141,15 +171,38 @@ extern "C" int gb_fps(const float* planes, const float* dist0, int32_t* out, int
                       void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int per_thread = (n + kThreads - 1) / kThreads;
+  constexpr int T = kThreads;
   cudaError_t err;
-  if (per_thread <= 1) err = launch<1>(planes, dist0, out, b, n, m, s);
-  else if (per_thread <= 2) err = launch<2>(planes, dist0, out, b, n, m, s);
-  else if (per_thread <= 4) err = launch<4>(planes, dist0, out, b, n, m, s);
-  else if (per_thread <= 8) err = launch<8>(planes, dist0, out, b, n, m, s);
-  else if (per_thread <= 16) err = launch<16>(planes, dist0, out, b, n, m, s);
-  else if (per_thread <= 20) err = launch<20>(planes, dist0, out, b, n, m, s);
-  else if (per_thread <= 24) err = launch<24>(planes, dist0, out, b, n, m, s);
-  else if (per_thread <= 32) err = launch<32>(planes, dist0, out, b, n, m, s);
+  if (per_thread <= 1) err = launch<T, 1, false>(planes, dist0, nullptr, out, b, n, m, s);
+  else if (per_thread <= 2) err = launch<T, 2, false>(planes, dist0, nullptr, out, b, n, m, s);
+  else if (per_thread <= 4) err = launch<T, 4, false>(planes, dist0, nullptr, out, b, n, m, s);
+  else if (per_thread <= 8) err = launch<T, 8, false>(planes, dist0, nullptr, out, b, n, m, s);
+  else if (per_thread <= 16) err = launch<T, 16, false>(planes, dist0, nullptr, out, b, n, m, s);
+  else if (per_thread <= 20) err = launch<T, 20, false>(planes, dist0, nullptr, out, b, n, m, s);
+  else if (per_thread <= 24) err = launch<T, 24, false>(planes, dist0, nullptr, out, b, n, m, s);
+  else if (per_thread <= 32) err = launch<T, 32, false>(planes, dist0, nullptr, out, b, n, m, s);
+  else err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+// Masked mode. planes: (S, 3, N) f32; dist0: (S, N) f32 (1e10 for a valid
+// point, -1 otherwise); needed: one device int32, the number of leading
+// slots the caller reads; out: (S, m) int32. N <= 32768 (rows past 16384
+// points take the main path's 1024-thread blocks).
+extern "C" int gb_fps_masked(const float* planes, const float* dist0, const int32_t* needed,
+                             int32_t* out, int b, int n, int m, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int per_thread = (n + kMaskedThreads - 1) / kMaskedThreads;
+  constexpr int T = kMaskedThreads;
+  cudaError_t err;
+  if (per_thread <= 1) err = launch<T, 1, true>(planes, dist0, needed, out, b, n, m, s);
+  else if (per_thread <= 2) err = launch<T, 2, true>(planes, dist0, needed, out, b, n, m, s);
+  else if (per_thread <= 4) err = launch<T, 4, true>(planes, dist0, needed, out, b, n, m, s);
+  else if (per_thread <= 8) err = launch<T, 8, true>(planes, dist0, needed, out, b, n, m, s);
+  else if (per_thread <= 16) err = launch<T, 16, true>(planes, dist0, needed, out, b, n, m, s);
+  else if (per_thread <= 32) err = launch<T, 32, true>(planes, dist0, needed, out, b, n, m, s);
+  else if (n <= 20 * kThreads) err = launch<kThreads, 20, true>(planes, dist0, needed, out, b, n, m, s);
+  else if (n <= 32 * kThreads) err = launch<kThreads, 32, true>(planes, dist0, needed, out, b, n, m, s);
   else err = cudaErrorInvalidValue;
   return static_cast<int>(err);
 }

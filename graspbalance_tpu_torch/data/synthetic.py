@@ -1,11 +1,12 @@
-"""Synthetic scene clouds: the point clouds of
+"""Synthetic scene clouds: the point clouds and instance labels of
 graspbalance_tpu/data/synthetic.py:make_batch (random boxes on a table
-plane), drawn from the same numpy stream, without the label tensors.
+plane), drawn from the same numpy stream, without the grasp label tensors.
 
-``make_point_clouds(seed, b, cfg)`` equals
-``make_batch(seed, b, cfg)["point_clouds"]`` of the JAX package for the same
-geometry settings (and ``analytic_labels=False``), so the port can be fed the
-scenes the JAX package is measured on without importing it.
+``make_scenes(seed, b, cfg)`` equals ``make_batch(seed, b, cfg)``'s
+``point_clouds`` and ``instance_label`` (0 = table, 1..num_objects = the
+boxes) of the JAX package for the same geometry settings (and
+``analytic_labels=False``), so the port can be fed the scenes the JAX package
+is measured on without importing it.
 """
 
 from __future__ import annotations
@@ -29,9 +30,10 @@ class SceneConfig:
     grasp_points_per_object: int = 300
 
 
-def make_scene_cloud(rng: np.random.Generator, cfg: SceneConfig) -> np.ndarray:
-    """One (num_points, 3) float32 scene; consumes ``rng`` exactly as the
-    JAX package's make_scene does."""
+def make_scene(rng: np.random.Generator, cfg: SceneConfig) -> tuple[np.ndarray, np.ndarray]:
+    """One scene: (num_points, 3) float32 cloud and (num_points,) int32
+    instance labels; consumes ``rng`` exactly as the JAX package's
+    make_scene does."""
     n_obj = cfg.num_objects
     n_table = int(cfg.num_points * TABLE_FRAC)
     n_obj_pts = cfg.num_points - n_table
@@ -50,14 +52,17 @@ def make_scene_cloud(rng: np.random.Generator, cfg: SceneConfig) -> np.ndarray:
     ).astype(np.float32)
 
     per_obj = n_obj_pts // n_obj
-    parts = [table]
+    parts, ids = [table], [np.zeros(n_table, np.int32)]
     for i in range(n_obj):
         parts.append((rng.random((per_obj, 3), dtype=np.float32) - 0.5) * sizes[i] + centers[i])
+        ids.append(np.full(per_obj, i + 1, np.int32))
     rem = n_obj_pts - per_obj * n_obj
     if rem:
         parts.append(table[:rem])
-    cloud = np.concatenate(parts, axis=0)
-    cloud = cloud[rng.permutation(cfg.num_points)]
+        ids.append(np.zeros(rem, np.int32))
+    perm = rng.permutation(cfg.num_points)
+    cloud = np.concatenate(parts, axis=0)[perm]
+    seg = np.concatenate(ids)[perm]
 
     # the label points and label-tensor shifts the JAX package draws next
     k, p_max = cfg.grasp_points_per_object, cfg.max_grasp_points
@@ -67,11 +72,18 @@ def make_scene_cloud(rng: np.random.Generator, cfg: SceneConfig) -> np.ndarray:
             break
         rng.random((hi - lo, 3), dtype=np.float32)
     rng.integers(0, p_max, 3)
-    return cloud
+    return cloud, seg
+
+
+def make_scenes(seed: int, batch_size: int, cfg: SceneConfig | None = None):
+    """(clouds (batch_size, num_points, 3) float32, instance_label
+    (batch_size, num_points) int32) from ``seed``."""
+    cfg = cfg or SceneConfig()
+    rng = np.random.default_rng(seed)
+    scenes = [make_scene(rng, cfg) for _ in range(batch_size)]
+    return np.stack([c for c, _ in scenes]), np.stack([s for _, s in scenes])
 
 
 def make_point_clouds(seed: int, batch_size: int, cfg: SceneConfig | None = None) -> np.ndarray:
     """(batch_size, num_points, 3) float32 scene clouds from ``seed``."""
-    cfg = cfg or SceneConfig()
-    rng = np.random.default_rng(seed)
-    return np.stack([make_scene_cloud(rng, cfg) for _ in range(batch_size)])
+    return make_scenes(seed, batch_size, cfg)[0]

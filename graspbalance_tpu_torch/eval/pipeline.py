@@ -1,0 +1,126 @@
+"""End-to-end inference pipeline (port of graspbalance_tpu/eval/pipeline.py):
+
+  cloud -> [FPS shared -> DSN -> mean-shift cluster] -> GraspBalance forward
+  with object-balanced re-seeding -> pred_decode -> grasp NMS -> voxel
+  downsample -> collision filter -> (grasps (B, Ns, 17), keep (B, Ns)).
+
+Everything up to the final host copy runs on ``device``, which defaults to
+the card: ``GraspInference`` raises when no CUDA device is present unless
+the caller passes ``device="cpu"`` (where every kernel runs its plain
+version). ``to_grasp_group_array`` emits graspnetAPI's 17-column GraspGroup
+rows.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from graspbalance_tpu_torch.eval.collision import collision_detect, voxel_downsample_fixed
+from graspbalance_tpu_torch.eval.nms import grasp_nms
+from graspbalance_tpu_torch.models.decode import pred_decode
+from graspbalance_tpu_torch.models.dsn import cluster
+from graspbalance_tpu_torch.ops.fps import furthest_point_sample, furthest_point_sample_plain
+
+
+def make_postprocess(collision_thresh: float = 0.05):
+    """The post-decode stack, batched: grasp NMS, then the collision filter
+    against the 5 mm voxel-downsampled scene.
+
+    Returns ``postprocess(grasps (B, G, 17), valid (B, G), scene (B, N, 3),
+    *, plain=False, stats=None) -> keep (B, G) bool``; ``plain`` runs the
+    collision counts' plain version, ``stats`` receives the NMS sweeps."""
+
+    def postprocess(grasps, valid, scene, *, plain: bool = False, stats: dict | None = None):
+        keep = grasp_nms(grasps, valid, stats=stats)
+        s_ds, s_valid = voxel_downsample_fixed(scene)
+        coll = collision_detect(
+            s_ds, grasps, scene_valid=s_valid, collision_thresh=collision_thresh, plain=plain
+        )
+        return keep & ~coll
+
+    return postprocess
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device must exist."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "GraspInference runs on a CUDA device by default and none is available; "
+            "pass device='cpu' to run the plain PyTorch versions on the CPU"
+        )
+    return device
+
+
+class GraspInference:
+    """A GraspBalance model (+ optional DSN for OBS) for scene inference.
+
+    ``model`` and ``dsn`` are the port's modules with their weights loaded;
+    they are moved to ``device`` and put in eval mode."""
+
+    def __init__(
+        self,
+        model,
+        dsn=None,
+        *,
+        use_obs: bool = False,
+        collision_thresh: float = 0.05,
+        device="cuda",
+    ):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.dsn = dsn.to(self.device).eval() if dsn is not None else None
+        self.use_obs = use_obs and dsn is not None
+        self.collision_thresh = collision_thresh
+        self.postprocess = make_postprocess(collision_thresh)
+        if self.use_obs:
+            # one FPS serves both networks: greedy FPS re-traces itself, so
+            # the DSN's stage-0 sample and the model backbone's are prefixes
+            # of one run over the same cloud
+            self.n0_dsn = dsn.pt_stages[0][0]
+            self.n0_model = model.backbone.stages[0][0]
+
+    def sample(self, cloud: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
+        """The shared FPS of both networks: (B, max(n0_dsn, n0_model)) int32."""
+        fps = furthest_point_sample_plain if plain else furthest_point_sample
+        return fps(cloud[..., :3].contiguous(), max(self.n0_dsn, self.n0_model))
+
+    def segment(self, cloud: torch.Tensor, *, generator=None, gumbel=None, plain: bool = False):
+        """The shared FPS, then the DSN + mean-shift half of OBS: (labels
+        (B, N) int32, sa_inds (B, n0_model) int32). The mean-shift noise is
+        ``gumbel``, or is drawn from ``generator`` (default: a generator on
+        the device seeded 0)."""
+        xyz = cloud[..., :3].contiguous()
+        sa_full = self.sample(xyz, plain=plain)
+        ep = self.dsn(cloud, sa_inds=sa_full[:, : self.n0_dsn], plain=plain)
+        fg = torch.argmax(ep["foreground_logits"], dim=-1) == 1
+        if gumbel is None and generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        labels, _, _ = cluster(xyz, ep["center_offsets"], fg, gumbel=gumbel, generator=generator)
+        return labels, sa_full[:, : self.n0_model]
+
+    def forward(self, cloud: torch.Tensor, *, generator=None, gumbel=None, plain: bool = False) -> dict:
+        """The model's end points, re-seeded by OBS when ``use_obs``."""
+        kw = {}
+        if self.use_obs:
+            labels, sa_inds = self.segment(cloud, generator=generator, gumbel=gumbel, plain=plain)
+            kw = {"seed_cluster": labels, "sa_inds": sa_inds}
+        return self.model(cloud, plain=plain, **kw)
+
+    @torch.no_grad()
+    def __call__(self, cloud, *, generator=None, gumbel=None):
+        """cloud (B, N, 3) (numpy or tensor) -> (grasps (B, Ns, 17) numpy,
+        keep (B, Ns) numpy bool)."""
+        cloud = torch.as_tensor(cloud, dtype=torch.float32).to(self.device)
+        ep = self.forward(cloud, generator=generator, gumbel=gumbel)
+        grasps, valid = pred_decode(ep)
+        keep = self.postprocess(grasps, valid, cloud[..., :3])
+        return grasps.cpu().numpy(), keep.cpu().numpy()
+
+
+def to_grasp_group_array(grasps: np.ndarray, keep: np.ndarray) -> np.ndarray:
+    """(Ns, 17), (Ns,) -> (G, 17) float32 rows in graspnetAPI GraspGroup
+    column order [score, width, height, depth, rotation(9), translation(3),
+    object_id]."""
+    return grasps[keep].astype(np.float32)

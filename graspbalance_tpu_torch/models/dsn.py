@@ -1,0 +1,71 @@
+"""DSN: the instance segmentation head that feeds object-balanced sampling
+(port of graspbalance_tpu/models/dsn.py, eval forward).
+
+Point-transformer backbone -> foreground logits + 3-D center offsets at the
+seed level -> inverse-distance upsampling to the full cloud. ``cluster``
+runs mean shift over the predicted centers. The training labels
+(``compute_center_offset_labels``) are not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from graspbalance_tpu_torch.eval.meanshift import gumbel_noise, mean_shift_cluster, subsampled_count
+from graspbalance_tpu_torch.models.point_transformer import PT_STAGES, PointTransformerSeg
+from graspbalance_tpu_torch.nn.layers import MLPBlock
+from graspbalance_tpu_torch.ops.interpolate import interpolate_features
+
+
+class DSN(nn.Module):
+    def __init__(self, pt_stages=PT_STAGES):
+        super().__init__()
+        self.pt_stages = tuple(pt_stages)
+        self.backbone = PointTransformerSeg(self.pt_stages)
+        self.fg1 = MLPBlock(256, 256)
+        self.fg2 = nn.Linear(256, 2)
+        self.off1 = MLPBlock(256, 256)
+        self.off2 = nn.Linear(256, 3)
+
+    @torch.no_grad()
+    def forward(self, pointcloud: torch.Tensor, *, sa_inds=None, plain: bool = False) -> dict:
+        """pointcloud (B, N, 3) -> dict with seed_xyz, foreground_logits
+        (B, N, 2) and center_offsets (B, N, 3), upsampled to the full cloud.
+        ``plain`` runs the kernels' plain versions."""
+        bb = self.backbone(pointcloud, sa_inds=sa_inds, plain=plain)
+        feats = bb["seed_features"]
+        fg = self.fg2(self.fg1(feats))
+        off = self.off2(self.off1(feats))
+        # one shared three_nn + gather for both heads
+        both = interpolate_features(pointcloud[..., :3], bb["seed_xyz"], torch.cat([fg, off], dim=-1))
+        return {
+            "seed_xyz": bb["seed_xyz"],
+            "foreground_logits": both[..., :2],
+            "center_offsets": both[..., 2:],
+        }
+
+
+def cluster(
+    xyz: torch.Tensor,
+    offsets: torch.Tensor,
+    fg_mask: torch.Tensor,
+    *,
+    gumbel: torch.Tensor | None = None,
+    generator: torch.Generator | None = None,
+    num_seeds: int = 50,
+    subsample_factor: int = 5,
+    **kw,
+):
+    """Mean shift over the predicted centers (xyz + offsets), restricted to
+    the foreground: (labels (B, N) int32 with 0 background, centers,
+    center_valid). The seed draws' Gumbel noise is ``gumbel``
+    (B, 1 + num_seeds, m), or is drawn from ``generator``."""
+    if gumbel is None:
+        if generator is None:
+            raise ValueError("cluster needs gumbel noise or a torch.Generator to draw it")
+        m = subsampled_count(xyz.shape[1], subsample_factor)
+        gumbel = gumbel_noise((xyz.shape[0], 1 + num_seeds, m), generator, xyz.device)
+    return mean_shift_cluster(
+        xyz + offsets, fg_mask, gumbel, num_seeds=num_seeds, subsample_factor=subsample_factor, **kw
+    )

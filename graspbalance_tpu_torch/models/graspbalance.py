@@ -1,7 +1,8 @@
 """GraspBalance eval forward (port of graspbalance_tpu/models/graspbalance.py,
-``backbone='drp'``, ``multi_scale=True``, ``match_labels=False``, no OBS).
+``backbone='drp'``, ``multi_scale=True``, ``match_labels=False``).
 
-  Stage 1: DRP backbone -> GraspableDetection (objectness, view scores, top
+  Stage 1: DRP backbone -> optional OBS re-seeding from a DSN instance
+           clustering -> GraspableDetection (objectness, view scores, top
            view and its approach rotation).
   Stage 2: multi-scale cylinder width grouping at the top view -> 1x1 fuse
            -> gated fusion with the seed features -> grasp parameter and
@@ -10,7 +11,8 @@
 The end-point keys are those of the JAX eval forward: input_xyz,
 input_features, sa1_inds, sa{1..4}_{xyz,features}, fp2_{features,xyz,inds},
 objectness_score, view_score, grasp_top_view_{inds,score,xyz,rot},
-grasp_{score,angle_cls,width}_pred, grasp_tolerance_pred.
+grasp_{score,angle_cls,width}_pred, grasp_tolerance_pred; with OBS also
+fp2_inds_fps (the backbone's own seed indices).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from graspbalance_tpu_torch.eval.obs import object_balance_indices
 from graspbalance_tpu_torch.models.drp import DRP, DRP_STAGES
 from graspbalance_tpu_torch.models.heads import (
     SCALES,
@@ -27,6 +30,8 @@ from graspbalance_tpu_torch.models.heads import (
     MultiScaleWidthGrouping,
     ToleranceHead,
 )
+from graspbalance_tpu_torch.ops.gather import gather_points
+from graspbalance_tpu_torch.ops.interpolate import interpolate_features
 
 
 class GraspBalance(nn.Module):
@@ -44,14 +49,30 @@ class GraspBalance(nn.Module):
         self.tolerance = ToleranceHead()
 
     @torch.no_grad()
-    def forward(self, point_clouds: torch.Tensor, *, sa_inds=None, plain: bool = False) -> dict:
+    def forward(
+        self, point_clouds: torch.Tensor, *, sa_inds=None, seed_cluster=None, plain: bool = False
+    ) -> dict:
         """point_clouds (B, N, 3) -> end points (see the module docstring).
+        ``seed_cluster`` (B, N) int instance ids (0 = background) turns on
+        OBS re-seeding.
 
         The kernels have no backward, so the forward runs without gradients.
         ``plain`` runs the kernels' plain PyTorch versions instead (to compare
         against them on the card); on CPU tensors they run either way."""
         ep = self.backbone(point_clouds, sa_inds=sa_inds, plain=plain)
         seed_xyz, seed_features = ep["fp2_xyz"], ep["fp2_features"]
+        if seed_cluster is not None:
+            # select first (OBS never reads features), then interpolate the
+            # seed features at just the chosen points
+            obs_inds = object_balance_indices(
+                ep["input_xyz"], seed_cluster, num_seed=self.backbone.num_seed, plain=plain
+            )
+            obs_xyz = gather_points(ep["input_xyz"], obs_inds)
+            obs_feats = interpolate_features(obs_xyz, seed_xyz, seed_features)
+            ep["fp2_inds_fps"] = ep["fp2_inds"]
+            seed_xyz = ep["fp2_xyz"] = obs_xyz
+            seed_features = ep["fp2_features"] = obs_feats
+            ep["fp2_inds"] = obs_inds
         ep.update(self.graspable(seed_xyz, seed_features))
         vp = self.width_grouping(
             seed_xyz, ep["input_xyz"], ep["grasp_top_view_rot"], plain=plain

@@ -1,15 +1,18 @@
-"""Point-cloud primitives. On a CUDA tensor, FPS, the multi-cylinder query
-and the fused width MLP launch hand-written kernels; on a CPU tensor they
-run their plain PyTorch versions. The other ops are PyTorch on any device."""
+"""Point-cloud primitives. On a CUDA tensor, FPS (and its masked mode), the
+multi-cylinder query, the fused width MLP, kNN and the collision counts
+launch hand-written kernels; on a CPU tensor they run their plain PyTorch
+versions. The other ops are PyTorch on any device."""
 
-from graspbalance_tpu_torch.ops.fps import furthest_point_sample
+from graspbalance_tpu_torch.ops.fps import furthest_point_sample, furthest_point_sample_masked
 from graspbalance_tpu_torch.ops.gather import gather_points, group_points
 from graspbalance_tpu_torch.ops.interpolate import three_interpolate
-from graspbalance_tpu_torch.ops.knn import three_nn
+from graspbalance_tpu_torch.ops.knn import knn, three_nn
 from graspbalance_tpu_torch.ops.query import ball_query, multi_cylinder_query
 
 __all__ = [
     "furthest_point_sample",
+    "furthest_point_sample_masked",
+    "knn",
     "ball_query",
     "multi_cylinder_query",
     "three_nn",

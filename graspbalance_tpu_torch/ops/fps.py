@@ -5,8 +5,13 @@ squared distance with a running buffer initialised to 1e10; points with
 ``|p|^2 <= 1e-3`` (near-origin padding) are never selected; ties go to the
 lowest index.
 
-``furthest_point_sample`` launches the CUDA kernel (``csrc/fps.cu``) on a
-CUDA tensor and runs ``furthest_point_sample_plain`` on a CPU tensor.
+``furthest_point_sample_masked`` restricts the selection to per-row valid
+subsets (OBS's per-object FPS): the seed is each row's first valid index (0
+for a row with none), and invalid points are never selected.
+
+``furthest_point_sample`` and ``furthest_point_sample_masked`` launch the
+CUDA kernel (``csrc/fps.cu``, its masked mode for the latter) on a CUDA
+tensor and run their plain versions on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -33,18 +38,17 @@ def initial_distances(xyz: torch.Tensor) -> torch.Tensor:
     return torch.where(x * x + y * y + z * z > ORIGIN_EPS, INIT_DIST, -1.0).float()
 
 
-def furthest_point_sample_plain(xyz: torch.Tensor, num_samples: int) -> torch.Tensor:
-    """(B, N, 3) -> (B, num_samples) int32, one tensor step per sample.
+def _greedy(xyz: torch.Tensor, dist: torch.Tensor, seed: torch.Tensor, num_samples: int):
+    """Greedy max-min selection from running distances ``dist`` (B, N),
+    starting at ``seed`` (B, 1) int64, one tensor step per sample.
 
     The distance is written as ``dx*dx + dy*dy + dz*dz`` on coordinate
     planes, so its rounding is fixed and matches the kernel bit for bit."""
-    _check_xyz(xyz)
-    xyz = xyz.float()
     b = xyz.shape[0]
     x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
-    dist = initial_distances(xyz)
     out = torch.zeros((b, num_samples), dtype=torch.int32, device=xyz.device)
-    last = torch.zeros((b, 1), dtype=torch.int64, device=xyz.device)
+    out[:, 0] = seed[:, 0].to(torch.int32)
+    last = seed
     for j in range(1, num_samples):
         dx = x - x.gather(1, last)
         dy = y - y.gather(1, last)
@@ -53,6 +57,28 @@ def furthest_point_sample_plain(xyz: torch.Tensor, num_samples: int) -> torch.Te
         last = torch.argmax(dist, dim=1, keepdim=True)  # first max: lowest index
         out[:, j] = last[:, 0].to(torch.int32)
     return out
+
+
+def furthest_point_sample_plain(xyz: torch.Tensor, num_samples: int) -> torch.Tensor:
+    """(B, N, 3) -> (B, num_samples) int32, plain PyTorch version."""
+    _check_xyz(xyz)
+    xyz = xyz.float()
+    seed = torch.zeros((xyz.shape[0], 1), dtype=torch.int64, device=xyz.device)
+    return _greedy(xyz, initial_distances(xyz), seed, num_samples)
+
+
+def masked_initial_distances(valid: torch.Tensor) -> torch.Tensor:
+    """(S, N) bool -> (S, N) running distances before the first step: 1e10
+    for a valid point, -1 for an invalid one (never selected)."""
+    return torch.where(valid, INIT_DIST, -1.0).float()
+
+
+def furthest_point_sample_masked_plain(xyz: torch.Tensor, valid: torch.Tensor, num_samples: int) -> torch.Tensor:
+    """(S, N, 3), (S, N) bool -> (S, num_samples) int32, plain PyTorch
+    version of the masked FPS. It selects every slot."""
+    _check_xyz(xyz)
+    seed = torch.argmax(valid.to(torch.int32), dim=1, keepdim=True)  # first valid, else 0
+    return _greedy(xyz.float(), masked_initial_distances(valid), seed, num_samples)
 
 
 def furthest_point_sample(xyz: torch.Tensor, num_samples: int) -> torch.Tensor:
@@ -76,4 +102,42 @@ def furthest_point_sample(xyz: torch.Tensor, num_samples: int) -> torch.Tensor:
             _build.stream_of(xyz),
         )
     _build.check(err, "fps")
+    return out
+
+
+def furthest_point_sample_masked(
+    xyz: torch.Tensor, valid: torch.Tensor, num_samples: int, *, max_needed=None
+) -> torch.Tensor:
+    """Batched greedy FPS restricted to per-row valid subsets.
+
+    xyz (S, N, 3) f32, valid (S, N) bool -> (S, num_samples) int32; seed =
+    first valid index per row (0 for a row with none). ``max_needed`` (an
+    int32 scalar tensor on xyz's device, or an int): the caller reads only
+    the first max_needed slots per row; the kernel stops there and writes 0
+    past it, without a host sync."""
+    _check_xyz(xyz)
+    if valid.shape != xyz.shape[:2]:
+        raise ValueError(f"valid must be (S, N) = {tuple(xyz.shape[:2])}, got {tuple(valid.shape)}")
+    if xyz.device.type == "cpu":
+        return furthest_point_sample_masked_plain(xyz, valid, num_samples)
+    _build.require_cuda("xyz", xyz, torch.float32, 3)
+    _build.require_cuda("valid", valid, torch.bool, 2)
+    s, n, _ = xyz.shape
+    if not 1 <= n <= MAX_POINTS:
+        raise ValueError(f"the masked FPS kernel takes 1..{MAX_POINTS} points, got {n}")
+    if num_samples < 1:
+        raise ValueError(f"num_samples must be >= 1, got {num_samples}")
+    if max_needed is None:
+        max_needed = num_samples
+    needed = torch.as_tensor(max_needed, dtype=torch.int32, device=xyz.device).reshape(1)
+    planes = xyz.transpose(1, 2).contiguous()  # (S, 3, N)
+    dist0 = masked_initial_distances(valid).contiguous()
+    out = torch.empty((s, num_samples), dtype=torch.int32, device=xyz.device)
+    lib = _build.library()
+    with torch.cuda.device(xyz.device):
+        err = lib.gb_fps_masked(
+            planes.data_ptr(), dist0.data_ptr(), needed.data_ptr(), out.data_ptr(),
+            s, n, num_samples, _build.stream_of(xyz),
+        )
+    _build.check(err, "fps_masked")
     return out

@@ -1,29 +1,87 @@
-"""Exact three nearest neighbours (port of graspbalance_tpu/ops/knn.py,
-``three_nn`` with ``impl='exact'``). Ties go to the lower index."""
+"""k-nearest-neighbour ops (port of graspbalance_tpu/ops/knn.py): exact
+``three_nn`` and exact ``knn``. Ties go to the lower index.
+
+``knn`` launches the CUDA kernel (``csrc/knn.cu``) on CUDA tensors and runs
+``knn_plain`` on CPU tensors.
+"""
 
 from __future__ import annotations
 
 import torch
 
+from graspbalance_tpu_torch import _build
 
-def three_nn(unknown: torch.Tensor, known: torch.Tensor):
-    """unknown (B, N, 3), known (B, M, 3) -> dist (B, N, 3) euclidean,
-    idx (B, N, 3) int32, nearest first.
+MAX_K = 32  # the kernel keeps at most 32 candidates per lane
 
-    Three argmin passes over the (B, N, M) squared-distance matrix, each
-    masking its winner; torch.argmin returns the first minimum, so ties
-    resolve to the lower index as in the reference kernel."""
-    q = unknown.unsqueeze(2)  # (B, N, 1, 3)
-    r = known.unsqueeze(1)  # (B, 1, M, 3)
+
+def _pairwise_d2(query: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """(B, Q, 3), (B, R, 3) -> (B, Q, R) squared distances, written as
+    ``(dx*dx + dy*dy) + dz*dz`` so that the rounding is fixed."""
+    q = query.unsqueeze(2)  # (B, Q, 1, 3)
+    r = ref.unsqueeze(1)  # (B, 1, R, 3)
     dx = q[..., 0] - r[..., 0]
     dy = q[..., 1] - r[..., 1]
     dz = q[..., 2] - r[..., 2]
-    cur = dx * dx + dy * dy + dz * dz  # (B, N, M)
+    return dx * dx + dy * dy + dz * dz
+
+
+def _argmin_passes(d2: torch.Tensor, k: int):
+    """k argmin passes over (B, Q, R), each masking its winner; torch.min
+    returns the first minimum, so ties resolve to the lower index."""
     idxs, vals = [], []
-    for _ in range(3):
+    cur = d2
+    for _ in range(k):
         val, i = torch.min(cur, dim=-1, keepdim=True)
         idxs.append(i)
         vals.append(val)
         cur = cur.scatter(-1, i, float("inf"))
     dist = torch.sqrt(torch.clamp(torch.cat(vals, dim=-1), min=0.0))
     return dist, torch.cat(idxs, dim=-1).to(torch.int32)
+
+
+def three_nn(unknown: torch.Tensor, known: torch.Tensor):
+    """unknown (B, N, 3), known (B, M, 3) -> dist (B, N, 3) euclidean,
+    idx (B, N, 3) int32, nearest first."""
+    return _argmin_passes(_pairwise_d2(unknown, known), 3)
+
+
+def knn_plain(ref: torch.Tensor, query: torch.Tensor, k: int, *, chunk: int = 1024):
+    """Plain PyTorch version of ``knn``: k argmin passes over chunks of
+    queries (the (Q, R) distance plane of a whole cloud is not needed at
+    once)."""
+    outs = [
+        _argmin_passes(_pairwise_d2(query[:, lo : lo + chunk], ref), k)
+        for lo in range(0, query.shape[1], chunk)
+    ]
+    return torch.cat([o[0] for o in outs], dim=1), torch.cat([o[1] for o in outs], dim=1)
+
+
+def knn(ref: torch.Tensor, query: torch.Tensor, k: int, *, method: str = "exact"):
+    """k nearest reference points per query: ref (B, R, 3), query (B, Q, 3)
+    -> (dist (B, Q, k) euclidean ascending, idx (B, Q, k) int32).
+
+    Only ``method='exact'`` is ported; the JAX package's TPU 'approx' mode
+    has no counterpart here."""
+    if method != "exact":
+        raise ValueError(f"only method='exact' is ported, got {method!r}")
+    b, r, _ = ref.shape
+    if query.ndim != 3 or query.shape[0] != b or query.shape[-1] != 3 or ref.shape[-1] != 3:
+        raise ValueError(f"need ref (B, R, 3), query (B, Q, 3); got {tuple(ref.shape)}, {tuple(query.shape)}")
+    if not 1 <= k <= min(MAX_K, r):
+        raise ValueError(f"knn takes 1 <= k <= min({MAX_K}, R={r}), got k={k}")
+    if ref.device.type == "cpu":
+        return knn_plain(ref, query, k)
+    _build.require_cuda("ref", ref, torch.float32, 3)
+    _build.require_cuda("query", query, torch.float32, 3)
+    q = query.shape[1]
+    planes = ref.transpose(1, 2).contiguous()  # (B, 3, R)
+    dist = torch.empty((b, q, k), dtype=torch.float32, device=ref.device)
+    idx = torch.empty((b, q, k), dtype=torch.int32, device=ref.device)
+    lib = _build.library()
+    with torch.cuda.device(ref.device):
+        err = lib.gb_knn(
+            query.data_ptr(), planes.data_ptr(), dist.data_ptr(), idx.data_ptr(),
+            b, q, r, k, _build.stream_of(ref),
+        )
+    _build.check(err, "knn")
+    return dist, idx

@@ -70,7 +70,7 @@ def init_random_(model: nn.Module, seed: int) -> nn.Module:
     same seed gives the same weights on any device): Linear weights and
     biases uniform in +-1/sqrt(fan_in), as torch initialises them, and
     non-trivial BatchNorm parameters and running statistics, so that the BN
-    fold is exercised."""
+    fold is exercised, and LayerNorm scales and offsets around 1 and 0."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for mod in model.modules():
@@ -85,6 +85,10 @@ def init_random_(model: nn.Module, seed: int) -> nn.Module:
                 mod.bias.copy_(0.1 * torch.randn(n, generator=gen))
                 mod.running_mean.copy_(0.1 * torch.randn(n, generator=gen))
                 mod.running_var.copy_(0.5 + torch.rand(n, generator=gen))
+            elif isinstance(mod, nn.LayerNorm):
+                n = mod.weight.shape
+                mod.weight.copy_(1.0 + 0.1 * torch.randn(n, generator=gen))
+                mod.bias.copy_(0.1 * torch.randn(n, generator=gen))
     return model
 
 

@@ -1,7 +1,9 @@
-"""The three CUDA kernels against their plain PyTorch versions on the card,
-at edge cases the main path's shapes do not reach: clouds whose size is
-not a multiple of the block, exact distance ties, near-origin points,
-seeds with no cylinder hit, fewer than K hits. Marked ``cuda``: they skip
+"""The CUDA kernels against their plain PyTorch versions on the card, at
+edge cases the main path's shapes do not reach: clouds whose size is not a
+multiple of the block, exact distance ties, near-origin points, seeds with
+no cylinder hit, fewer than K hits, duplicate kNN references, masked-FPS
+rows with no valid point, ragged grasp and point counts for the collision
+counts. Marked ``cuda``: they skip
 where torch has no CUDA device, and run on the card with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -9,9 +11,10 @@ where torch has no CUDA device, and run on the card with
 (``--noconftest`` because tests/conftest.py imports jax, which the card's
 machine does not have; this file needs none of it.)
 
-Tolerances: FPS and query indices and rotated coordinates exactly (both
-sides round the same operations in the same order); the width MLP within
-1e-5 (f32 FMA against the plain matmuls' summation order).
+Tolerances: FPS, masked FPS, query and kNN indices, rotated coordinates,
+kNN distances and collision counts exactly (both sides round the same
+operations in the same order); the width MLP within 1e-5 (f32 FMA against
+the plain matmuls' summation order).
 """
 
 import numpy as np
@@ -19,8 +22,16 @@ import pytest
 import torch
 
 from graspbalance_tpu_torch import _build
+from graspbalance_tpu_torch.eval.collision import collision_detect
 from graspbalance_tpu_torch.models.heads import MultiScaleWidthGrouping
-from graspbalance_tpu_torch.ops.fps import furthest_point_sample, furthest_point_sample_plain
+from graspbalance_tpu_torch.ops.collision import collision_counts, collision_counts_plain, pack_grasp_params
+from graspbalance_tpu_torch.ops.fps import (
+    furthest_point_sample,
+    furthest_point_sample_masked,
+    furthest_point_sample_masked_plain,
+    furthest_point_sample_plain,
+)
+from graspbalance_tpu_torch.ops.knn import knn, knn_plain
 from graspbalance_tpu_torch.ops.multicyl import multi_cylinder_group, multi_cylinder_group_plain
 from graspbalance_tpu_torch.ops.widthmlp import width_mlp_fused_rot, width_mlp_fused_rot_plain
 from graspbalance_tpu_torch.weights import init_random_
@@ -128,3 +139,88 @@ def test_widthmlp_kernel_refuses_other_widths(dev, rng):
     centers, rot = torch.zeros((1, 2, 3), device=dev), torch.eye(3, device=dev).expand(1, 2, 3, 3)
     with pytest.raises(ValueError, match="widths"):
         width_mlp_fused_rot(grouped, centers, rot, head.folded_weights())
+
+
+@pytest.mark.parametrize("q,r,k", [(1, 1, 1), (100, 1000, 16), (513, 2500, 16), (77, 40, 32), (300, 300, 3)])
+def test_knn_kernel_sizes(dev, rng, q, r, k):
+    query = torch.from_numpy(rng.standard_normal((2, q, 3)).astype(np.float32)).to(dev)
+    ref = torch.from_numpy(rng.standard_normal((2, r, 3)).astype(np.float32)).to(dev)
+    before = _build.launches["knn"]
+    dist, idx = knn(ref, query, k)
+    assert _build.launches["knn"] == before + 1
+    dist_p, idx_p = knn_plain(ref, query, k)
+    torch.testing.assert_close(idx, idx_p, atol=0, rtol=0)
+    torch.testing.assert_close(dist, dist_p, atol=0, rtol=0)
+
+
+def test_knn_kernel_ties(dev, rng):
+    """Each reference point three times, on an integer grid: equal
+    distances everywhere, so the lower index must win every tie."""
+    base = rng.integers(-2, 3, size=(2, 200, 3)).astype(np.float32)
+    pts = torch.from_numpy(np.repeat(base, 3, axis=1)).to(dev)
+    dist, idx = knn(pts, pts, 16)
+    dist_p, idx_p = knn_plain(pts, pts, 16)
+    torch.testing.assert_close(idx, idx_p, atol=0, rtol=0)
+    torch.testing.assert_close(dist, dist_p, atol=0, rtol=0)
+
+
+def test_knn_kernel_refuses_what_it_cannot_take(dev):
+    pts = torch.zeros((1, 40, 3), device=dev)
+    with pytest.raises(ValueError, match="k"):
+        knn(pts, pts, 33)
+    with pytest.raises(ValueError, match="k"):
+        knn(pts[:, :8], pts, 16)
+    with pytest.raises(ValueError, match="float32"):
+        knn(pts.double(), pts.double(), 4)
+
+
+@pytest.mark.parametrize("n,m,needed", [(1, 4, 4), (1000, 300, 300), (4096, 512, 128), (4096, 512, 1), (20000, 64, 64)])
+def test_fps_masked_kernel(dev, rng, n, m, needed):
+    s = 6
+    xyz = torch.from_numpy((rng.random((s, n, 3)) - 0.5).astype(np.float32)).to(dev)
+    valid = torch.from_numpy(rng.random((s, n)) < 0.3).to(dev)
+    valid[0] = False  # no valid point: index 0 everywhere
+    valid[1, : n // 2] = False  # the seed is the first valid index
+    valid[2] = True
+    needed_t = torch.tensor(needed, dtype=torch.int32, device=dev)
+    before = _build.launches["fps_masked"]
+    got = furthest_point_sample_masked(xyz, valid, m, max_needed=needed_t)
+    assert _build.launches["fps_masked"] == before + 1
+    want = furthest_point_sample_masked_plain(xyz, valid, m)
+    torch.testing.assert_close(got[:, :needed], want[:, :needed], atol=0, rtol=0)
+    assert bool((got[:, needed:] == 0).all())
+    assert bool((got[0] == 0).all())
+    picked = valid.gather(1, got[:, :needed].long())
+    has = valid.any(dim=1)
+    assert bool(picked[has].all())
+
+
+def _grasps(rng, b, g):
+    q, _ = np.linalg.qr(rng.normal(size=(b, g, 3, 3)))
+    rows = np.zeros((b, g, 17), np.float32)
+    rows[..., 0] = rng.random((b, g))
+    rows[..., 1] = rng.uniform(0.01, 0.1, (b, g))
+    rows[..., 2] = 0.02
+    rows[..., 3] = rng.uniform(0.01, 0.04, (b, g))
+    rows[..., 4:13] = q.reshape(b, g, 9)
+    rows[..., 13:16] = rng.uniform(-0.2, 0.2, (b, g, 3))
+    rows[..., 16] = -1
+    return rows
+
+
+@pytest.mark.parametrize("n,g", [(1, 1), (513, 130), (5000, 1000), (20000, 257)])
+def test_collision_kernel_ragged(dev, rng, n, g):
+    b = 2
+    points = torch.from_numpy(rng.uniform(-0.25, 0.25, (b, n, 3)).astype(np.float32)).to(dev)
+    valid = torch.from_numpy(rng.random((b, n)) > 0.2).to(dev)
+    valid[1, n // 2 :] = False  # an invalid tail, as a downsampled scene has
+    grasps = torch.from_numpy(_grasps(rng, b, g)).to(dev)
+    params = pack_grasp_params(grasps, 0.03, 0.01, 0.06)
+    before = _build.launches["collision"]
+    got = collision_counts(points, valid, params)
+    assert _build.launches["collision"] == before + 1
+    want = collision_counts_plain(points, valid, params)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    coll, empty = collision_detect(points, grasps, scene_valid=valid, return_empty_grasp=True)
+    coll_p, empty_p = collision_detect(points, grasps, scene_valid=valid, return_empty_grasp=True, plain=True)
+    assert torch.equal(coll, coll_p) and torch.equal(empty, empty_p)

@@ -1,7 +1,8 @@
 """The port stands without JAX: importing graspbalance_tpu_torch, all its
-modules and every module chip_smoke.py imports pulls in no jax, flax or
-graspbalance_tpu (the card's machine has none of them). Also: the port's
-synthetic scene clouds equal the JAX package's, draw for draw."""
+modules (the eval/ subpackage included) and every module chip_smoke.py and
+time_main_path.py import pulls in no jax, flax or graspbalance_tpu (the
+card's machine has none of them). Also: the port's synthetic scene clouds
+and instance labels equal the JAX package's, draw for draw."""
 
 import ast
 import dataclasses
@@ -17,29 +18,32 @@ import pytest
 import graspbalance_tpu_torch
 from graspbalance_tpu.data.synthetic import SceneConfig as JSceneConfig
 from graspbalance_tpu.data.synthetic import make_batch
-from graspbalance_tpu_torch.data.synthetic import SceneConfig, make_point_clouds
+from graspbalance_tpu_torch.data.synthetic import SceneConfig, make_point_clouds, make_scenes
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SCRIPTS = ("chip_smoke", "time_main_path")  # the port's scripts at the root
 
 
 def _modules_to_import():
-    names = ["graspbalance_tpu_torch", "chip_smoke"]
+    names = ["graspbalance_tpu_torch", *SCRIPTS]
     names += [
         m.name
         for m in pkgutil.walk_packages(graspbalance_tpu_torch.__path__, "graspbalance_tpu_torch.")
     ]
-    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            names += [a.name for a in node.names]
-        elif isinstance(node, ast.ImportFrom) and node.module:
-            names.append(node.module)
+    for script in SCRIPTS:
+        tree = ast.parse(open(os.path.join(REPO, f"{script}.py")).read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names += [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names.append(node.module)
     return sorted(set(names))
 
 
 def test_port_imports_no_jax():
     names = _modules_to_import()
     assert "graspbalance_tpu_torch.ops.multicyl" in names and "torch" in names
+    assert "graspbalance_tpu_torch.eval.pipeline" in names and "graspbalance_tpu_torch.models.dsn" in names
     code = (
         "import importlib, json, sys\n"
         f"for name in {names!r}:\n"
@@ -70,6 +74,22 @@ def test_scene_clouds_match_jax(geometry):
     got = make_point_clouds(5, 3, SceneConfig(**geometry))
     assert got.dtype == np.float32
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize(
+    "geometry",
+    [
+        dict(num_points=256, num_objects=3, max_grasp_points=128, grasp_points_per_object=24),
+        dict(num_points=1003, num_objects=7),  # a remainder of table points among the objects
+    ],
+)
+def test_scene_instance_labels_match_jax(geometry):
+    want = make_batch(6, 2, JSceneConfig(num_views=4, **geometry))
+    clouds, labels = make_scenes(6, 2, SceneConfig(**geometry))
+    assert labels.dtype == np.int32
+    np.testing.assert_array_equal(clouds, want["point_clouds"])
+    np.testing.assert_array_equal(labels, want["instance_label"])
+    assert set(np.unique(labels)) == set(range(geometry["num_objects"] + 1))
 
 
 def test_scene_defaults_match_jax():
