@@ -4,14 +4,15 @@
     python3 chip_smoke.py
 
 Drives the port's paths (graspbalance_tpu_torch) at full width on 20,000-point
-synthetic scenes, bs=4, with random weights from seeds: the GraspBalance eval
-forward + pred_decode (the main path), and the serving pipeline
+synthetic scenes with random weights from seeds: at bs=4 the GraspBalance eval
+forward + pred_decode (the main path) and the serving pipeline
 GraspInference without and with OBS (DSN + mean shift + object-balanced
-re-seeding, grasp NMS, the voxel-downsampled collision filter). Phases, each
-fatal on failure:
+re-seeding, grasp NMS, the voxel-downsampled collision filter); at bs=2 the
+training step (label matching, multi-task loss, backward, Adam + OneCycle,
+BatchNorm statistics). Phases, each fatal on failure:
 
   1. print the card's name and power limit (nvidia-smi);
-  2. build the six CUDA kernels from csrc/*.cu (one nvcc per source, all in
+  2. build the seven CUDA kernels from csrc/*.cu (one nvcc per source, all in
      parallel) and time the build;
   3. with TF32 off, compare the main path's kernels with their plain PyTorch
      versions at its shapes: FPS indices exact, query indices exact and
@@ -37,10 +38,27 @@ fatal on failure:
   8. time both pipelines (clouds/s, p50 ms/scene, the share of postprocess
      and of DSN + cluster + OBS, the NMS sweeps), then trace 3 calls of each
      with torch.profiler: kernels, device ms and wall ms per call, the
-     card's busy share and the largest kernels, one JSON line per pipeline.
+     card's busy share and the largest kernels, one JSON line per pipeline;
+  9. the training step, bs=2, full-width make_batch scenes (300 views, 4,096
+     label points): the scatter-add kernel (the gathers' backward) against
+     its plain version at every gather shape of the step, captured from the
+     step itself (integer cotangents exactly, float ones within the
+     worst-case bound of f32 recursive summation of the float64 sums, two
+     launches bit-equal), timed beside its plain version and index_add_;
+     one step through the kernels and one through the plain versions (FPS,
+     the cylinder query and, swapped in for the kernel's wrapper, the
+     scatter-add) from the same state (fps, multicyl and scatter launched,
+     widthmlp not; the
+     losses within 1e-5 relative, every gradient within GRAD_TOL of its
+     tensor's largest |grad|, every metric finite); then TRAIN_STEPS more
+     steps through the kernels: each step's loss, ms per step (median and
+     spread), clouds/s, a forward / backward / optimizer split from CUDA
+     events and the peak device memory, and a torch.profiler pass over two
+     more steps (its JSON line as phase 8's).
 
-Prints the kernel table as one JSON line (each kernel's launches on the OBS
-pipeline, its error against the plain version, its time, the plain
+Prints the kernel table as one JSON line (each kernel's launches on the path
+named in its "path": the OBS pipeline, or one training step for the
+scatter-add; its error against the plain version, its time, the plain
 version's, the card's least time for the work and, where one PyTorch call
 computes the same function, that call's time), and as the last line
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero before any
@@ -49,6 +67,9 @@ result. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
+import copy
+import functools
 import json
 import statistics
 import subprocess
@@ -69,6 +90,20 @@ KNN_DIST_TOL = 1e-6  # abs; both sides round the same ops
 MAIN_ITERS = 20  # timed forward + decode calls, after a warm-up
 PIPELINE_ITERS = 10  # timed GraspInference calls per pipeline, after a warm-up
 STAGE_REPS = 3  # calls averaged per stage of the stage shares
+TRAIN_BATCH = 2  # the training step's batch (the JAX package's DataConfig.batch_size)
+TRAIN_STEPS = 6  # timed training steps through the kernels, after the compared one
+STEPS_PER_EPOCH = 10  # sets OneCycle's length (max_epoch x this); the run stays in epoch 0
+LOSS_RTOL = 1e-5  # kernel vs plain step: the forward is the same, so the losses are too
+# kernel vs plain step gradients, of each tensor's largest |grad|: the two
+# backward passes differ only in the order the scatter-add sums its rows
+GRAD_TOL = 1e-4
+# the kernels each path must launch
+PATH_KERNELS = {
+    "main": ("fps", "multicyl", "widthmlp"),
+    "no_obs": ("fps", "multicyl", "widthmlp", "collision"),
+    "obs": ("fps", "multicyl", "widthmlp", "knn", "fps_masked", "collision"),
+    "train": ("fps", "multicyl", "scatter"),
+}
 # the card's peaks (NVIDIA H100 SXM data sheet, 700 W): device memory and
 # FP32 outside the tensor cores, the type every kernel here computes in
 PEAK_BYTES_S = 3.35e12
@@ -155,21 +190,24 @@ def compare_decoded(ep, ep_p, grasps, grasps_p, valid, valid_p, what: str) -> st
             f"decode another angle or depth (head gaps angle {d_ang:.3g}, score {d_score:.3g})")
 
 
-def profile_pipelines(pipelines, cloud, calls: int = 3) -> None:
-    """torch.profiler over `calls` calls of each pipeline: kernels and
-    device (kernel) ms per call, beside the unprofiled wall ms per call."""
+def profile_calls(fns: dict, calls: int = 3) -> None:
+    """torch.profiler over `calls` calls of each fn in `fns` (name -> fn):
+    kernels and device (kernel) ms per call, beside the unprofiled wall ms
+    per call, one JSON line each."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for name, infer in pipelines.items():
-        infer(cloud)
-        wall = wall_ms(lambda: infer(cloud), calls)
+    for name, fn in fns.items():
+        fn()
+        wall = wall_ms(fn, calls)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
-                infer(cloud)
+                fn()
             torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        # device events, without the ranges that annotate them (the optimizer
+        # step's, whose kernels are counted on their own)
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
         dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / calls
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
         print(json.dumps({
@@ -180,6 +218,179 @@ def profile_pipelines(pipelines, cloud, calls: int = 3) -> None:
             "busy_share": dev_ms / wall,
             "top": [[e.key[:70], e.self_device_time_total / 1e3 / calls, e.count // calls] for e in top],
         }))
+
+
+@contextlib.contextmanager
+def gather_backward(fn):
+    """Within the block, the gathers' backward (ops/gather.py) calls ``fn``
+    (ct, idx, n) in place of the scatter-add kernel's wrapper."""
+    from graspbalance_tpu_torch.ops import gather
+
+    real = gather.scatter_add
+    gather.scatter_add = fn
+    try:
+        yield
+    finally:
+        gather.scatter_add = real
+
+
+def capture_scatters(step) -> list:
+    """(ct, idx, n) of every scatter-add kernel launch that ``step()`` makes
+    (copies, for the comparisons); the launches themselves run as usual."""
+    from graspbalance_tpu_torch.ops.scatter import scatter_add
+
+    launched = []
+
+    def recording(ct, idx, n):
+        launched.append((ct.clone(), idx.clone(), n))
+        return scatter_add(ct, idx, n)
+
+    with gather_backward(recording):
+        step()
+    return launched
+
+
+def scatter_phase(calls) -> tuple[tuple, float, tuple]:
+    """The scatter-add kernel against its plain version on each captured
+    call: integer-valued cotangents exactly, two launches bit-equal, float
+    cotangents within the worst-case error bound of recursive f32 summation,
+    (rows - 1) * 2^-24 * sum |ct| per output, of the float64 sums. Returns
+    (kernel, plain, index_add_ ms summed over the calls; the largest float
+    error; the bound (ms, by) of all the calls' bytes)."""
+    import torch
+
+    from graspbalance_tpu_torch.ops.scatter import scatter_add, scatter_add_plain
+
+    max_err, nbytes = 0.0, 0.0
+    times = [0.0, 0.0, 0.0]
+    shapes = {}
+    for ct, idx, n in calls:
+        b, r, c = ct.shape
+        ct_int = torch.randint(-8, 9, ct.shape, generator=torch.Generator(device=ct.device).manual_seed(r),
+                               device=ct.device).float()
+        require(torch.equal(scatter_add(ct_int, idx, n), scatter_add_plain(ct_int, idx, n)),
+                f"scatter kernel != plain on integer cotangents at {tuple(ct.shape)} -> n={n}")
+        got = scatter_add(ct, idx, n)
+        require(torch.equal(got, scatter_add(ct, idx, n)), f"scatter kernel not deterministic at {tuple(ct.shape)}")
+        exact = scatter_add_plain(ct.double(), idx, n)
+        rows = scatter_add_plain(torch.ones_like(ct[..., :1], dtype=torch.float64), idx, n)
+        limit = (rows - 1).clamp(min=0) * 2.0**-24 * scatter_add_plain(ct.abs().double(), idx, n)
+        err = (got.double() - exact).abs()
+        require(bool((err <= limit).all()),
+                f"scatter kernel error {float(err.max())} beyond the summation bound at {tuple(ct.shape)}")
+        max_err = max(max_err, float(err.max()))
+        flat_rows = (idx.long() + torch.arange(b, device=idx.device).unsqueeze(1) * n).reshape(-1)
+        flat_ct = ct.reshape(-1, c)
+        times[0] += cuda_ms(lambda: scatter_add(ct, idx, n), 5)
+        times[1] += cuda_ms(lambda: scatter_add_plain(ct, idx, n), 5)
+        times[2] += cuda_ms(lambda: torch.zeros((b * n, c), device=ct.device).index_add_(0, flat_rows, flat_ct), 5)
+        nbytes += ct.numel() * 4 + idx.numel() * 4 + b * n * c * 4
+        key = (b, r, n, c)
+        shapes[key] = shapes.get(key, 0) + 1
+    print("scatter-add at the step's gather shapes (B, R, n, C) x calls: "
+          + ", ".join(f"{k} x{v}" for k, v in shapes.items())
+          + f"; integer cotangents exact, two launches bit-equal, float max err {max_err:.3g} "
+          f"(within the f32 summation bound everywhere)")
+    # one add per (row, channel): the bytes bind
+    return tuple(times), max_err, bound(nbytes, sum(ct.numel() for ct, _, _ in calls))
+
+
+def train_phase(dev, smi: str):
+    """Phase 9 (see the module docstring). Returns the launch counts of one
+    step and the scatter-add's table entries: ((ms, plain ms, library ms),
+    max error, bound)."""
+    import torch
+
+    from graspbalance_tpu_torch import _build
+    from graspbalance_tpu_torch.data.synthetic import SceneConfig, make_batch
+    from graspbalance_tpu_torch.ops.scatter import scatter_add_plain
+    from graspbalance_tpu_torch.train.config import Config
+    from graspbalance_tpu_torch.train.train_step import (
+        build_model,
+        forward_loss,
+        make_optimizer,
+        to_device,
+        train_step,
+    )
+    from graspbalance_tpu_torch.weights import init_random_
+
+    cfg = Config()
+    t0 = time.perf_counter()
+    batch = to_device(make_batch(SEED, TRAIN_BATCH, SceneConfig(num_points=NUM_POINTS)), dev)
+    label_gb = sum(v.numel() * v.element_size() for v in batch.values()) / 1e9
+    print(f"train batch: {TRAIN_BATCH} x {NUM_POINTS} points, label tensors "
+          f"{tuple(batch['grasp_labels'].shape)}, {label_gb:.2f} GB on the card, "
+          f"made in {time.perf_counter() - t0:.1f} s")
+    model = init_random_(build_model(cfg, device=dev), SEED)
+    model_p = copy.deepcopy(model)
+    opt, sched = make_optimizer(model, cfg, STEPS_PER_EPOCH)
+    opt_p, sched_p = make_optimizer(model_p, cfg, STEPS_PER_EPOCH)
+
+    # one step through the kernels (its scatter calls captured), one through
+    # the plain versions, from the same state
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    out = {}
+    calls = capture_scatters(lambda: out.update(train_step(model, opt, sched, batch, 0, cfg)))
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    require(all(launches[k] > 0 for k in PATH_KERNELS["train"]) and launches["widthmlp"] == 0,
+            f"training step: launches {launches}; needs fps, multicyl, scatter > 0 and widthmlp == 0")
+    metrics_k = {k: float(v) for k, v in out.items()}
+    with gather_backward(scatter_add_plain):
+        metrics_p = {k: float(v) for k, v in train_step(model_p, opt_p, sched_p, batch, 0, cfg, plain=True).items()}
+    for name, metrics in (("kernel", metrics_k), ("plain", metrics_p)):
+        bad = [k for k, v in metrics.items() if v != v or abs(v) == float("inf")]
+        require(not bad, f"training step ({name}): non-finite metrics {bad}")
+    loss_k, loss_p = metrics_k["loss/overall_loss"], metrics_p["loss/overall_loss"]
+    require(abs(loss_k - loss_p) <= LOSS_RTOL * abs(loss_p), f"training loss: kernel {loss_k} vs plain {loss_p}")
+    grad_errs = {}
+    for (name, p), (_, q) in zip(model.named_parameters(), model_p.named_parameters()):
+        scale = float(q.grad.abs().max())
+        grad_errs[name] = float((p.grad - q.grad).abs().max()) / max(scale, 1e-30)
+    worst = max(grad_errs, key=grad_errs.get)
+    print(f"train step kernel vs plain: launches {launches}; loss {loss_k!r} vs {loss_p!r}; gradients: "
+          f"largest error {grad_errs[worst]:.3g} of the tensor's max |grad| ({worst}), "
+          f"median {statistics.median(grad_errs.values()):.3g} over {len(grad_errs)} tensors")
+    require(grad_errs[worst] <= GRAD_TOL, f"gradient of {worst}: {grad_errs[worst]:.3g} > {GRAD_TOL}")
+    print("metrics (kernel step): " + json.dumps(metrics_k))
+
+    scatter = scatter_phase(calls)
+    del calls, model_p, opt_p, sched_p
+
+    # more steps through the kernels: loss per step, ms per step, the split
+    torch.cuda.reset_peak_memory_stats()
+    losses, iters = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        m = train_step(model, opt, sched, batch, 0, cfg)
+        torch.cuda.synchronize()
+        iters.append(time.perf_counter() - t1)
+        losses.append(m["loss/overall_loss"])
+    losses = [float(v) for v in losses]
+    require(all(v == v and abs(v) != float("inf") for v in losses), f"non-finite training losses {losses}")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    opt.zero_grad(set_to_none=True)
+    ev[0].record()
+    loss, _ = forward_loss(model, batch, 0, cfg)
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    opt.step()
+    sched.step()
+    ev[3].record()
+    torch.cuda.synchronize()
+    split = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms = sorted(t * 1e3 for t in iters)
+    print(f"train step bs={TRAIN_BATCH}, {NUM_POINTS} pts, through the kernels: losses {losses}; "
+          f"{TRAIN_BATCH * len(iters) / sum(iters):.3f} clouds/s, median {statistics.median(ms):.3f} ms/step "
+          f"(min {ms[0]:.3f}, max {ms[-1]:.3f} over {len(ms)} steps); split (CUDA events, one more step) "
+          f"forward+loss {split[0]:.3f} ms, backward {split[1]:.3f} ms, optimizer {split[2]:.3f} ms; "
+          f"peak device memory {peak_gb:.2f} GB ({smi})")
+    profile_calls({"train": lambda: train_step(model, opt, sched, batch, 0, cfg)}, calls=2)
+    return launches, *scatter
 
 
 def main() -> int:
@@ -316,7 +527,7 @@ def main() -> int:
     grasps, valid = pred_decode(ep)
     torch.cuda.synchronize()
     main_launches = dict(_build.launches)
-    require(all(main_launches[n] > 0 for n in ("fps", "multicyl", "widthmlp")),
+    require(all(main_launches[n] > 0 for n in PATH_KERNELS["main"]),
             f"a kernel of the main path was not launched: {main_launches}")
     require(grasps.shape == (BATCH, m, 17) and valid.shape == (BATCH, m), "decode shapes")
     ep_p = model(cloud, plain=True)
@@ -428,8 +639,7 @@ def main() -> int:
             g_np, keep_np = infer(cloud)
             torch.cuda.synchronize()
             path_launches[name] = dict(_build.launches)
-            used = _build.KERNELS if name == "obs" else ("fps", "multicyl", "widthmlp", "collision")
-            require(all(path_launches[name][n] > 0 for n in used),
+            require(all(path_launches[name][n] > 0 for n in PATH_KERNELS[name]),
                     f"{name}: a kernel of the path was not launched: {path_launches[name]}")
             require(g_np.shape == (BATCH, m, 17) and keep_np.shape == (BATCH, m), f"{name}: output shapes")
             require(bool(torch.isfinite(torch.from_numpy(g_np)).all()), f"{name}: non-finite grasps")
@@ -503,10 +713,14 @@ def main() -> int:
               f"{all_stats['sweeps']} NMS sweeps")
 
     with torch.no_grad():
-        profile_pipelines(pipelines, cloud)
+        profile_calls({name: functools.partial(infer, cloud) for name, infer in pipelines.items()})
+
+    # 9. the training step
+    path_launches["train"], times["scatter"], errs["scatter"], bounds["scatter"] = train_phase(dev, smi)
 
     sources = {"fps": "fps.cu", "multicyl": "multicyl.cu", "widthmlp": "widthmlp.cu",
-               "knn": "knn.cu", "fps_masked": "fps.cu", "collision": "collision.cu"}
+               "knn": "knn.cu", "fps_masked": "fps.cu", "collision": "collision.cu",
+               "scatter": "scatter.cu"}
     replaces = {
         "fps": "graspbalance_tpu/ops/pallas/fps_kernel.py:357",
         "multicyl": "graspbalance_tpu/ops/pallas/multicyl_kernel.py:212",
@@ -514,14 +728,19 @@ def main() -> int:
         "knn": "graspbalance_tpu/ops/pallas/knn_kernel.py:80",
         "fps_masked": "graspbalance_tpu/ops/pallas/fps_kernel.py:300",
         "collision": "graspbalance_tpu/ops/pallas/collision_kernel.py:132",
+        "scatter": "graspbalance_tpu/ops/pallas/scatter_kernel.py:81",
     }
+    # where each kernel's launch count comes from: the OBS pipeline runs
+    # every inference kernel; the scatter-add runs only in training
+    launch_path = {name: "train" if name == "scatter" else "obs" for name in _build.KERNELS}
     table = [
         {
             "name": name,
             "route": "cuda",
             "source": f"graspbalance_tpu_torch/csrc/{sources[name]}",
             "replaces": replaces[name],
-            "launches": path_launches["obs"][name],
+            "path": launch_path[name],
+            "launches": path_launches[launch_path[name]][name],
             "max_abs_err": errs[name],
             "ms": times[name][0],
             "plain_ms": times[name][1],

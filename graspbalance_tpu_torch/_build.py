@@ -29,7 +29,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
-KERNELS = ("fps", "multicyl", "widthmlp", "knn", "fps_masked", "collision")
+KERNELS = ("fps", "multicyl", "widthmlp", "knn", "fps_masked", "collision", "scatter")
 
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
@@ -43,6 +43,7 @@ _SIGNATURES = {
     "gb_knn": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "gb_fps_masked": (_P, _P, _P, _P, _I, _I, _I, _P),
     "gb_collision": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "gb_scatter_add": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

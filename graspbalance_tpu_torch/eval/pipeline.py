@@ -47,7 +47,7 @@ def resolve_device(device) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "GraspInference runs on a CUDA device by default and none is available; "
+            "the port runs on a CUDA device by default and none is available; "
             "pass device='cpu' to run the plain PyTorch versions on the CPU"
         )
     return device

@@ -1,5 +1,6 @@
-"""Grasp view geometry (port of graspbalance_tpu/labels/geometry.py, the
-part the eval forward and decode use)."""
+"""Grasp view geometry and label thresholds (port of
+graspbalance_tpu/labels/geometry.py, the part the forward, decode, label
+matching and loss use)."""
 
 from __future__ import annotations
 
@@ -10,6 +11,8 @@ import torch
 
 GRASP_MAX_WIDTH = 0.1
 GRASP_MAX_TOLERANCE = 0.05
+THRESH_GOOD = 0.7
+THRESH_BAD = 0.1
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,4 +1,4 @@
-"""DRP backbone (port of graspbalance_tpu/models/drp.py, eval forward).
+"""DRP backbone (port of graspbalance_tpu/models/drp.py).
 
 Four set-abstraction stages (npoint 2048/1024/512/256), each followed by
 3/6/3/3 inverted-residual blocks, then two feature-propagation stages back

@@ -1,18 +1,23 @@
-"""GraspBalance eval forward (port of graspbalance_tpu/models/graspbalance.py,
-``backbone='drp'``, ``multi_scale=True``, ``match_labels=False``).
+"""GraspBalance forward (port of graspbalance_tpu/models/graspbalance.py,
+``backbone='drp'``, ``multi_scale=True``): the eval forward
+(``match_labels=False``) and the training forward (``train=True``).
 
   Stage 1: DRP backbone -> optional OBS re-seeding from a DSN instance
-           clustering -> GraspableDetection (objectness, view scores, top
-           view and its approach rotation).
-  Stage 2: multi-scale cylinder width grouping at the top view -> 1x1 fuse
-           -> gated fusion with the seed features -> grasp parameter and
-           tolerance heads.
+           clustering (eval) -> GraspableDetection (objectness, view
+           scores, top view and its approach rotation).
+  Labels:  (training) label matching on the device, labels/label_gen.py.
+  Stage 2: multi-scale cylinder width grouping -> 1x1 fuse -> gated fusion
+           with the seed features -> grasp parameter and tolerance heads;
+           centred on the seeds with their top-view rotations (eval), or on
+           the matched label grasp points with the label view rotations
+           (training).
 
-The end-point keys are those of the JAX eval forward: input_xyz,
+The end-point keys are those of the JAX forward: input_xyz,
 input_features, sa1_inds, sa{1..4}_{xyz,features}, fp2_{features,xyz,inds},
 objectness_score, view_score, grasp_top_view_{inds,score,xyz,rot},
 grasp_{score,angle_cls,width}_pred, grasp_tolerance_pred; with OBS also
-fp2_inds_fps (the backbone's own seed indices).
+fp2_inds_fps (the backbone's own seed indices); in training also the
+batch_grasp_* labels of match_grasp_view_and_label.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch
 from torch import nn
 
 from graspbalance_tpu_torch.eval.obs import object_balance_indices
+from graspbalance_tpu_torch.labels.label_gen import match_grasp_view_and_label, process_grasp_labels
 from graspbalance_tpu_torch.models.drp import DRP, DRP_STAGES
 from graspbalance_tpu_torch.models.heads import (
     SCALES,
@@ -56,7 +62,8 @@ class GraspBalance(nn.Module):
         ``seed_cluster`` (B, N) int instance ids (0 = background) turns on
         OBS re-seeding.
 
-        The kernels have no backward, so the forward runs without gradients.
+        The fused width MLP kernel has no backward, so the eval forward runs
+        without gradients (``forward_train`` is the training forward).
         ``plain`` runs the kernels' plain PyTorch versions instead (to compare
         against them on the card); on CPU tensors they run either way."""
         ep = self.backbone(point_clouds, sa_inds=sa_inds, plain=plain)
@@ -74,9 +81,29 @@ class GraspBalance(nn.Module):
             seed_features = ep["fp2_features"] = obs_feats
             ep["fp2_inds"] = obs_inds
         ep.update(self.graspable(seed_xyz, seed_features))
-        vp = self.width_grouping(
-            seed_xyz, ep["input_xyz"], ep["grasp_top_view_rot"], plain=plain
-        )  # (B, Ns, D, 4*256)
+        return self._stage2(ep, seed_xyz, ep["grasp_top_view_rot"], plain)
+
+    def forward_train(self, batch: dict, *, plain: bool = False) -> dict:
+        """The training forward, with gradients. ``batch``: point_clouds
+        (B, N, 3), optional sa_inds, and the padded label arrays of
+        labels/label_gen.py, all on the model's device. BatchNorm follows
+        the module's mode: the training step puts the model in train mode
+        (batch statistics). ``plain`` runs the plain PyTorch versions of FPS
+        and the cylinder query; the gathers' backward follows the device
+        (``ops/gather.py``)."""
+        ep = self.backbone(batch["point_clouds"], sa_inds=batch.get("sa_inds"), plain=plain)
+        ep.update(self.graspable(ep["fp2_xyz"], ep["fp2_features"]))
+        matched = match_grasp_view_and_label(
+            ep["grasp_top_view_inds"], process_grasp_labels(ep["fp2_xyz"], batch)
+        )
+        ep.update(matched)
+        return self._stage2(ep, matched["batch_grasp_point"], matched["batch_grasp_view_rot"], plain)
+
+    def _stage2(self, ep: dict, centers, rot, plain: bool) -> dict:
+        """Width grouping at ``centers`` (B, Ns, 3) with rotations ``rot``
+        (B, Ns, 3, 3), gated fusion with ep's seed features, the heads."""
+        seed_features = ep["fp2_features"]
+        vp = self.width_grouping(centers, ep["input_xyz"], rot, plain=plain)  # (B, Ns, D, 4*256)
         gate = torch.sigmoid(self.gate_fusion(seed_features))
         vp_features = self.fuse_multi_scale(vp) + (gate * seed_features).unsqueeze(2)
         ep.update(self.grasp_params(vp_features))

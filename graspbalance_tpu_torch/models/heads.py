@@ -1,4 +1,4 @@
-"""Grasp detection heads, eval forward (port of graspbalance_tpu/models/heads.py).
+"""Grasp detection heads (port of graspbalance_tpu/models/heads.py).
 
 Output layouts (channels-last):
   objectness_score      (B, Ns, 2)
@@ -62,13 +62,18 @@ class GraspableDetection(nn.Module):
 
 
 class MultiScaleWidthGrouping(nn.Module):
-    """All four cylinder-radius scales of the width-grouping head, eval path:
+    """All four cylinder-radius scales of the width-grouping head:
 
     1. one multi-cylinder query computes the 4 radii x 4 depths neighbour
        indices (kernel 2);
-    2. a seed-major gather of the raw neighbour coordinates;
-    3. each scale's BN-folded MLP 3 -> 64 -> 128 -> 256 with the rotation
-       and center folded into layer 0, then the max over K (kernel 3).
+    2. eval mode: a seed-major gather of the raw neighbour coordinates,
+       then each scale's BN-folded MLP 3 -> 64 -> 128 -> 256 with the
+       rotation and center folded into layer 0 and the max over K
+       (kernel 3);
+    3. train mode (``self.training``: BatchNorm on batch statistics, which
+       kernel 3 cannot fold): gather, subtract the center, rotate into the
+       gripper frame, each scale's SharedMLP, max over K, as the JAX
+       package's XLA path does.
 
     Returns (B, Ns, D, n_scales * 256)."""
 
@@ -95,6 +100,12 @@ class MultiScaleWidthGrouping(nn.Module):
         query = multi_cylinder_group_plain if plain else multi_cylinder_group
         idx, _ = query(cloud_xyz, seed_xyz, vp_rot, self.radii, self.hmin, self.hmax_list, self.nsample)
         b, n_r, n_h, ns, k = idx.shape
+        if self.training:
+            grouped = group_points(cloud_xyz, idx.reshape(b, n_r * n_h * ns, k))
+            rel = grouped.reshape(b, n_r, n_h, ns, k, 3) - seed_xyz[:, None, None, :, None, :]
+            rel = torch.einsum("brhskj,bsji->brhski", rel, vp_rot)  # R^T (p - c)
+            feats = [getattr(self, f"mlp_scale{ri}")(rel[:, ri]).amax(dim=3) for ri in range(n_r)]
+            return torch.cat(feats, dim=-1).permute(0, 2, 1, 3)  # (B, Ns, D, 4C)
         idx_t = idx.permute(0, 3, 1, 2, 4).reshape(b, ns * n_r * n_h, k)  # (B, S*R*H, K)
         grouped = group_points(cloud_xyz, idx_t).reshape(b, ns, n_r, n_h, k, 3)
         mlp = width_mlp_fused_rot_plain if plain else width_mlp_fused_rot

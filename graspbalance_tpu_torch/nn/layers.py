@@ -1,5 +1,5 @@
 """Core layers: Linear (= 1x1 conv) + BatchNorm + ReLU blocks
-(port of graspbalance_tpu/nn/layers.py, eval mode).
+(port of graspbalance_tpu/nn/layers.py).
 
 Parameter names follow the flax tree: ``<block>.dense.weight`` (O, I),
 ``<block>.bn.weight`` / ``.bn.bias`` (flax ``scale`` / ``bias``) and the
@@ -11,26 +11,55 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
 
-class BatchNorm(nn.Module):
-    """BatchNorm over all axes but the last, with running statistics only:
-    ``(x - mean) * (scale / sqrt(var + eps)) + bias``. The port runs the eval
-    forward, so batch statistics are never computed."""
+def bn_momentum_schedule(
+    epoch: int, *, init: float = 0.5, decay_rate: float = 0.5, decay_step: int = 2, floor: float = 0.001
+) -> float:
+    """The reference's BN momentum schedule:
+    max(init * decay_rate ** (epoch // decay_step), floor), in float32."""
+    m = np.float32(init) * np.float32(decay_rate) ** np.float32(epoch // decay_step)
+    return float(np.maximum(m, np.float32(floor)))
 
-    def __init__(self, features: int, eps: float = 1e-5):
+
+class BatchNorm(nn.Module):
+    """BatchNorm over all axes but the last, ``(x - mean) * (scale /
+    sqrt(var + eps)) + bias``.
+
+    Eval mode normalises with the running statistics. Train mode
+    (``self.training``) normalises with the batch statistics, the variance
+    biased and computed as mean(x^2) - mean^2 (as the JAX package does), and
+    updates the running statistics in the torch-momentum convention,
+    ``running = (1 - m) * running + m * batch``, with the unbiased variance
+    n / (n - 1) * var; ``momentum`` is ``m``, set by the training step."""
+
+    def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv = self.weight * (1.0 / torch.sqrt(self.running_var + self.eps))
-        return (x - self.running_mean) * inv + self.bias
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            axes = tuple(range(x.ndim - 1))
+            mean = x.mean(dim=axes)
+            var = (x * x).mean(dim=axes) - mean * mean
+            n = x.numel() // x.shape[-1]
+            m = np.float32(self.momentum)  # both factors rounded to f32, as in JAX
+            keep, m = float(np.float32(1.0) - m), float(m)
+            with torch.no_grad():
+                self.running_mean.copy_(keep * self.running_mean + m * mean)
+                self.running_var.copy_(keep * self.running_var + m * (var * (n / max(n - 1, 1))))
+        inv = self.weight * (1.0 / torch.sqrt(var + self.eps))
+        return (x - mean) * inv + self.bias
 
     def fold(self, dense_weight: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """Fold this BN into the preceding bias-free dense layer:

@@ -2,11 +2,18 @@
 
 Precondition for both: every index lies in [0, N). The query and sampling
 ops of this package never emit anything else (no -1 sentinels).
+
+The gradient with respect to ``points`` is ``ops/scatter.scatter_add``:
+on a CUDA tensor its kernel (``csrc/scatter.cu``, deterministic), on a CPU
+tensor its plain version. Indices get no gradient.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
+
+from graspbalance_tpu_torch.ops.scatter import scatter_add
 
 
 def _flat_take(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -19,11 +26,32 @@ def _flat_take(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return points.reshape(b * n, c).index_select(0, rows).reshape(idx.shape + (c,))
 
 
+class _Take(torch.autograd.Function):
+    """``_flat_take`` with the scatter-add as its backward."""
+
+    @staticmethod
+    def forward(ctx, points, idx):
+        ctx.save_for_backward(idx)
+        ctx.n = points.shape[1]
+        return _flat_take(points, idx)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        (idx,) = ctx.saved_tensors
+        b, c = idx.shape[0], grad.shape[-1]
+        ct = grad.reshape(b, -1, c).contiguous()
+        rows = idx.reshape(b, -1).to(torch.int32).contiguous()
+        return scatter_add(ct, rows, ctx.n), None
+
+
 def gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """points (B, N, C), idx (B, M) int -> (B, M, C)."""
-    return _flat_take(points, idx)
+    return _Take.apply(points, idx)
 
 
 def group_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """points (B, N, C), idx (B, M, K) int -> (B, M, K, C)."""
-    return _flat_take(points, idx)
+    return _Take.apply(points, idx)

@@ -1,0 +1,67 @@
+"""The gather backward: a scatter-add of cotangent rows onto their source
+rows (port of graspbalance_tpu/ops/pallas/scatter_kernel.py:
+scatter_add_matmul).
+
+``scatter_add(ct, idx, n)`` launches the CUDA kernel (``csrc/scatter.cu``)
+on CUDA tensors and runs ``scatter_add_plain`` on CPU tensors. Both return
+
+  out (B, n, C), out[b, d] = sum of ct[b, r] over the rows r with
+  idx[b, r] == d; rows whose index lies outside [0, n) are dropped
+  (negative = padding).
+
+The kernel adds each destination's rows in increasing row order, so it is
+deterministic: two launches on the same inputs give bit-equal outputs.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from graspbalance_tpu_torch import _build
+
+
+def _check(ct: torch.Tensor, idx: torch.Tensor, n: int) -> None:
+    if ct.ndim != 3 or idx.shape != ct.shape[:2]:
+        raise ValueError(f"need ct (B, R, C) and idx (B, R); got {tuple(ct.shape)}, {tuple(idx.shape)}")
+    if n < 0:
+        raise ValueError(f"n must be >= 0, got {n}")
+
+
+def scatter_add_plain(ct: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Plain PyTorch version, in ``ct``'s dtype: one ``index_add_`` into a
+    flat (B*n + 1, C) zero tensor whose last row takes the dropped rows."""
+    _check(ct, idx, n)
+    b, _, c = ct.shape
+    idx = idx.to(torch.int64)
+    offs = torch.arange(b, device=idx.device, dtype=torch.int64).unsqueeze(1) * n
+    rows = torch.where((idx >= 0) & (idx < n), idx + offs, b * n)
+    out = torch.zeros((b * n + 1, c), dtype=ct.dtype, device=ct.device)
+    out.index_add_(0, rows.reshape(-1), ct.reshape(-1, c))
+    return out[: b * n].reshape(b, n, c)
+
+
+def scatter_add(ct: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """ct (B, R, C) f32, idx (B, R) int32 -> (B, n, C) f32 (see the module
+    docstring)."""
+    _check(ct, idx, n)
+    if ct.device.type == "cpu":
+        return scatter_add_plain(ct, idx, n)
+    _build.require_cuda("ct", ct, torch.float32, 3)
+    _build.require_cuda("idx", idx, torch.int32, 2)
+    b, r, c = ct.shape
+    out = torch.empty((b, n, c), dtype=torch.float32, device=ct.device)
+    if out.numel() == 0:
+        return out
+    # scratch of the counting sort: rows per destination, segment starts,
+    # row ids in segment order
+    counts = torch.empty((b, n), dtype=torch.int32, device=ct.device)
+    offsets = torch.empty((b, n + 1), dtype=torch.int32, device=ct.device)
+    rows = torch.empty((b, max(r, 1)), dtype=torch.int32, device=ct.device)
+    lib = _build.library()
+    with torch.cuda.device(ct.device):
+        err = lib.gb_scatter_add(
+            ct.data_ptr(), idx.data_ptr(), out.data_ptr(), counts.data_ptr(), offsets.data_ptr(),
+            rows.data_ptr(), b, r, n, c, _build.stream_of(ct),
+        )
+    _build.check(err, "scatter")
+    return out

@@ -3,7 +3,9 @@ edge cases the main path's shapes do not reach: clouds whose size is not a
 multiple of the block, exact distance ties, near-origin points, seeds with
 no cylinder hit, fewer than K hits, duplicate kNN references, masked-FPS
 rows with no valid point, ragged grasp and point counts for the collision
-counts. Marked ``cuda``: they skip
+counts, and for the scatter-add (the gather backward) duplicate and dropped
+rows, destination counts and channel counts off the block's tile, fewer rows
+than one round of the kernel. Marked ``cuda``: they skip
 where torch has no CUDA device, and run on the card with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -14,7 +16,10 @@ machine does not have; this file needs none of it.)
 Tolerances: FPS, masked FPS, query and kNN indices, rotated coordinates,
 kNN distances and collision counts exactly (both sides round the same
 operations in the same order); the width MLP within 1e-5 (f32 FMA against
-the plain matmuls' summation order).
+the plain matmuls' summation order); the scatter-add exactly on
+integer-valued cotangents, bit-equal between two launches, and on float
+cotangents within 1e-5 of the float64 sums (the plain index_add_ adds in
+atomic order).
 """
 
 import numpy as np
@@ -25,6 +30,7 @@ from graspbalance_tpu_torch import _build
 from graspbalance_tpu_torch.eval.collision import collision_detect
 from graspbalance_tpu_torch.models.heads import MultiScaleWidthGrouping
 from graspbalance_tpu_torch.ops.collision import collision_counts, collision_counts_plain, pack_grasp_params
+from graspbalance_tpu_torch.ops.gather import _flat_take, gather_points, group_points
 from graspbalance_tpu_torch.ops.fps import (
     furthest_point_sample,
     furthest_point_sample_masked,
@@ -33,6 +39,7 @@ from graspbalance_tpu_torch.ops.fps import (
 )
 from graspbalance_tpu_torch.ops.knn import knn, knn_plain
 from graspbalance_tpu_torch.ops.multicyl import multi_cylinder_group, multi_cylinder_group_plain
+from graspbalance_tpu_torch.ops.scatter import scatter_add, scatter_add_plain
 from graspbalance_tpu_torch.ops.widthmlp import width_mlp_fused_rot, width_mlp_fused_rot_plain
 from graspbalance_tpu_torch.weights import init_random_
 
@@ -224,3 +231,52 @@ def test_collision_kernel_ragged(dev, rng, n, g):
     coll, empty = collision_detect(points, grasps, scene_valid=valid, return_empty_grasp=True)
     coll_p, empty_p = collision_detect(points, grasps, scene_valid=valid, return_empty_grasp=True, plain=True)
     assert torch.equal(coll, coll_p) and torch.equal(empty, empty_p)
+
+
+@pytest.mark.parametrize(
+    "b,r,n,c",
+    [(2, 131072, 2048, 128), (1, 5, 3, 1), (2, 0, 7, 4), (3, 3000, 33, 33), (1, 20000, 5000, 200), (2, 1025, 2049, 257)],
+)
+def test_scatter_kernel_edge_cases(dev, rng, b, r, n, c):
+    idx = rng.integers(0, n, size=(b, r))
+    idx[:, ::9] = -1  # dropped rows
+    idx[:, 1::4] = idx[:, :1]  # one destination takes a quarter of the rows
+    idx = torch.from_numpy(idx.astype(np.int32)).to(dev)
+    ct_int = torch.from_numpy(rng.integers(-8, 9, size=(b, r, c)).astype(np.float32)).to(dev)
+    before = _build.launches["scatter"]
+    got = scatter_add(ct_int, idx, n)
+    assert _build.launches["scatter"] == before + 1
+    torch.testing.assert_close(got, scatter_add_plain(ct_int, idx, n), atol=0, rtol=0)
+    ct = torch.from_numpy(rng.standard_normal((b, r, c)).astype(np.float32)).to(dev)
+    first, second = scatter_add(ct, idx, n), scatter_add(ct, idx, n)
+    assert torch.equal(first, second)  # deterministic, bit for bit
+    exact = scatter_add_plain(ct.double(), idx, n)
+    torch.testing.assert_close(first.double(), exact, atol=1e-5 * max(1.0, float(exact.abs().max())), rtol=0)
+
+
+def test_scatter_kernel_refuses_what_it_cannot_take(dev):
+    idx = torch.zeros((1, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        scatter_add(torch.zeros((1, 8, 4), dtype=torch.float64, device=dev), idx, 4)
+    with pytest.raises(ValueError, match="int32"):
+        scatter_add(torch.zeros((1, 8, 4), device=dev), idx.long(), 4)
+
+
+@pytest.mark.parametrize("op", ["gather", "group"])
+def test_gather_backward_is_the_kernel(dev, rng, op):
+    """The gradient of a gather through the kernel against the plain
+    gather's own autograd (index_select, whose backward is index_add_), on
+    the LocalAggregation shape of the training step's stage 2 (B=2, 1024
+    centers x 32 neighbours of 1024 rows, C=256)."""
+    pts = torch.from_numpy(rng.standard_normal((2, 1024, 256)).astype(np.float32)).to(dev)
+    shape = (2, 1024) if op == "gather" else (2, 1024, 32)
+    idx = torch.from_numpy(rng.integers(0, 1024, size=shape).astype(np.int32)).to(dev)
+    w = torch.from_numpy(rng.standard_normal(shape + (256,)).astype(np.float32)).to(dev)
+    grads = []
+    for fn, launched in ((gather_points if op == "gather" else group_points, 1), (_flat_take, 0)):
+        p = pts.clone().requires_grad_(True)
+        before = _build.launches["scatter"]
+        (fn(p, idx) * w).sum().backward()
+        assert _build.launches["scatter"] == before + launched
+        grads.append(p.grad)
+    torch.testing.assert_close(grads[0], grads[1], atol=1e-5, rtol=1e-5)

@@ -1,5 +1,5 @@
 """The port stands without JAX: importing graspbalance_tpu_torch, all its
-modules (the eval/ subpackage included) and every module chip_smoke.py and
+modules (the eval/ and train/ subpackages included) and every module chip_smoke.py and
 time_main_path.py import pulls in no jax, flax or graspbalance_tpu (the
 card's machine has none of them). Also: the port's synthetic scene clouds
 and instance labels equal the JAX package's, draw for draw."""
@@ -44,6 +44,8 @@ def test_port_imports_no_jax():
     names = _modules_to_import()
     assert "graspbalance_tpu_torch.ops.multicyl" in names and "torch" in names
     assert "graspbalance_tpu_torch.eval.pipeline" in names and "graspbalance_tpu_torch.models.dsn" in names
+    assert "graspbalance_tpu_torch.train.train_step" in names and "graspbalance_tpu_torch.ops.scatter" in names
+    assert "graspbalance_tpu_torch.labels.losses" in names and "graspbalance_tpu_torch.labels.label_gen" in names
     code = (
         "import importlib, json, sys\n"
         f"for name in {names!r}:\n"
