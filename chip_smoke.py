@@ -9,10 +9,13 @@ forward + pred_decode (the main path) and the serving pipeline
 GraspInference without and with OBS (DSN + mean shift + object-balanced
 re-seeding, grasp NMS, the voxel-downsampled collision filter); at bs=2 the
 training step (label matching, multi-task loss, backward, Adam + OneCycle,
-BatchNorm statistics). Phases, each fatal on failure:
+BatchNorm statistics); at bs=4 the fused eval configuration (every
+set abstraction and local aggregation fused, the width head on the query's
+gripper-frame coordinates) through forward + decode and both pipelines; and
+the table-gather probe. Phases, each fatal on failure:
 
   1. print the card's name and power limit (nvidia-smi);
-  2. build the seven CUDA kernels from csrc/*.cu (one nvcc per source, all in
+  2. build the CUDA kernels from csrc/*.cu (one nvcc per source, all in
      parallel) and time the build;
   3. with TF32 off, compare the main path's kernels with their plain PyTorch
      versions at its shapes: FPS indices exact, query indices exact and
@@ -54,15 +57,36 @@ BatchNorm statistics). Phases, each fatal on failure:
      steps through the kernels: each step's loss, ms per step (median and
      spread), clouds/s, a forward / backward / optimizer split from CUDA
      events and the peak device memory, and a torch.profiler pass over two
-     more steps (its JSON line as phase 8's).
+     more steps (its JSON line as phase 8's);
+ 10. the fused configuration's kernels against their plain versions at its
+     shapes, on the same weights as the default model: the mlp-max kernel
+     at each of the 19 calls of one fused forward, captured from it (within
+     1e-4 abs + rel, two launches bit-equal); the width MLP on the cylinder
+     query's gripper-frame coordinates of that forward's seeds and top-view
+     rotations (within 1e-4); the class-plane selection on the same seeds
+     (indices exact against its plain version and against the cylinder
+     query's kernel), and once through multi_cylinder_query(impl="select");
+ 11. the fused forward + decode through the kernels (mlpmax 19 launches,
+     widthmlp_rel 1, widthmlp 0), against its plain run and against the
+     default configuration's output, both as in phase 4 (a seed whose top
+     view or objectness is a near tie between the two may differ);
+ 12. GraspInference without and with OBS on the fused model, as phase 7;
+ 13. the default and the fused forward + decode timed in alternating
+     rounds (clouds/s and p50 ms/scene of each), then a torch.profiler pass
+     (as phase 8's) over 3 calls of each and of the two layers they differ
+     in, the backbone after FPS and the width head;
+ 14. the table gather on the probe's four cases (exact against its plain
+     version and torch.gather), timed beside both.
 
-Prints the kernel table as one JSON line (each kernel's launches on the path
-named in its "path": the OBS pipeline, or one training step for the
-scatter-add; its error against the plain version, its time, the plain
-version's, the card's least time for the work and, where one PyTorch call
-computes the same function, that call's time), and as the last line
-{"ok": true, "device": {...}}. Without CUDA it exits non-zero before any
-result. Imports nothing of JAX.
+Prints the kernel table as one JSON line, a row per TPU kernel (K2 and K3 are
+covered by K1's kernel): its launches on the path named in its "path" (the
+OBS pipeline; one training step for the scatter-add; the fused OBS pipeline
+for the mlp-max and the width MLP on rotated coordinates; the op-level
+select query; the probe phase for the table gather), its error against the
+plain version, its time, the plain version's, the card's least time for the
+work and, where one PyTorch call computes the same function, that call's
+time; and as the last line {"ok": true, "device": {...}}. Without CUDA it
+exits non-zero before any result. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -97,13 +121,41 @@ LOSS_RTOL = 1e-5  # kernel vs plain step: the forward is the same, so the losses
 # kernel vs plain step gradients, of each tensor's largest |grad|: the two
 # backward passes differ only in the order the scatter-add sums its rows
 GRAD_TOL = 1e-4
+MLPMAX_TOL = 1e-4  # abs + rel; f32 FMA order against the plain matmuls
+FUSED_MLPMAX_LAUNCHES = 19  # 4 set abstractions + 15 local aggregations per forward
+FUSED_ROUNDS = 4  # alternating rounds of the default and the fused forward + decode
+FUSED_ITERS = 5  # timed calls of each configuration per round
+PROBE_REPS = 20  # timed launches of the table gather and its yardsticks
 # the kernels each path must launch
 PATH_KERNELS = {
     "main": ("fps", "multicyl", "widthmlp"),
     "no_obs": ("fps", "multicyl", "widthmlp", "collision"),
     "obs": ("fps", "multicyl", "widthmlp", "knn", "fps_masked", "collision"),
     "train": ("fps", "multicyl", "scatter"),
+    "fused_main": ("fps", "multicyl", "mlpmax", "widthmlp_rel"),
+    "fused_no_obs": ("fps", "multicyl", "mlpmax", "widthmlp_rel", "collision"),
+    "fused_obs": ("fps", "multicyl", "mlpmax", "widthmlp_rel", "knn", "fps_masked", "collision"),
 }
+# one row per TPU kernel: (its number, the name of the row, the kernel
+# measured for it, the source, the TPU kernel's def, the path whose launches
+# the row reports); K2 and K3 compute K1's function in other layouts and
+# are covered by K1's kernel
+KERNEL_TABLE = (
+    ("K1", "fps", "fps", "fps.cu", "graspbalance_tpu/ops/pallas/fps_kernel.py:357", "obs"),
+    ("K2", "fps_pallas_2d", "fps", "fps.cu", "graspbalance_tpu/ops/pallas/fps_kernel.py:399", "obs"),
+    ("K3", "fps_pallas", "fps", "fps.cu", "graspbalance_tpu/ops/pallas/fps_kernel.py:439", "obs"),
+    ("K4", "fps_masked", "fps_masked", "fps.cu", "graspbalance_tpu/ops/pallas/fps_kernel.py:300", "obs"),
+    ("K5", "widthmlp", "widthmlp", "widthmlp.cu", "graspbalance_tpu/ops/pallas/widthmlp_kernel.py:197", "obs"),
+    ("K6", "widthmlp_rel", "widthmlp_rel", "widthmlp.cu", "graspbalance_tpu/ops/pallas/widthmlp_kernel.py:74",
+     "fused_obs"),
+    ("K7", "multicyl", "multicyl", "multicyl.cu", "graspbalance_tpu/ops/pallas/multicyl_kernel.py:212", "obs"),
+    ("K8", "select", "select", "select.cu", "graspbalance_tpu/ops/pallas/select_kernel.py:136", "select_query"),
+    ("K9", "knn", "knn", "knn.cu", "graspbalance_tpu/ops/pallas/knn_kernel.py:80", "obs"),
+    ("K10", "collision", "collision", "collision.cu", "graspbalance_tpu/ops/pallas/collision_kernel.py:132", "obs"),
+    ("K11", "scatter", "scatter", "scatter.cu", "graspbalance_tpu/ops/pallas/scatter_kernel.py:81", "train"),
+    ("K12", "mlpmax", "mlpmax", "mlpmax.cu", "graspbalance_tpu/ops/pallas/mlpmax_kernel.py:133", "fused_obs"),
+    ("K13", "table_gather", "table_gather", "table_gather.cu", "tools/probe_mosaic_gather.py:45", "probe"),
+)
 # the card's peaks (NVIDIA H100 SXM data sheet, 700 W): device memory and
 # FP32 outside the tensor cores, the type every kernel here computes in
 PEAK_BYTES_S = 3.35e12
@@ -163,16 +215,29 @@ def argmax_margin(x, dim: int):
 
 
 def compare_decoded(ep, ep_p, grasps, grasps_p, valid, valid_p, what: str) -> str:
-    """Kernel against plain decoded grasps: valid masks exact; a decode
-    argmax can only flip where its margin is at most twice the gap between
-    the two paths' inputs to it, so every seed whose grasp differs must be
-    such a near tie."""
+    """Two runs' decoded grasps (kernel against plain, or the fused
+    configuration against the default). An argmax can only flip where its
+    margin is at most twice the largest gap between the two runs' inputs to
+    it: the valid masks must agree wherever objectness is no such near tie
+    (everywhere when the two runs' objectness scores are equal), and every
+    seed whose grasp differs must be a near tie of its top view (when the
+    view scores differ), its angle or its depth."""
     import torch
 
-    require(torch.equal(valid, valid_p), f"{what}: valid masks differ between kernel and plain paths")
-    d_ang = float((ep["grasp_angle_cls_pred"] - ep_p["grasp_angle_cls_pred"]).abs().max())
-    d_score = float((ep["grasp_score_pred"] - ep_p["grasp_score_pred"]).abs().max())
-    firm = (argmax_margin(ep_p["grasp_angle_cls_pred"], 2) > 2 * d_ang).all(dim=-1)
+    def firm_seeds(key, dim):
+        gap = float((ep[key] - ep_p[key]).abs().max())
+        return (argmax_margin(ep_p[key], dim) > 2 * gap) | (gap == 0.0)
+
+    obj_firm = firm_seeds("objectness_score", -1)
+    require(torch.equal(valid[obj_firm], valid_p[obj_firm]),
+            f"{what}: valid masks differ between the two runs away from objectness near ties")
+    view_firm = firm_seeds("view_score", -1)
+    gap_ang = (ep["grasp_angle_cls_pred"] - ep_p["grasp_angle_cls_pred"]).abs().amax(dim=(2, 3))
+    gap_score = (ep["grasp_score_pred"] - ep_p["grasp_score_pred"]).abs().amax(dim=(2, 3))
+    # the head gaps of seeds whose top view is the same in both runs
+    d_ang = float(gap_ang[view_firm].max()) if bool(view_firm.any()) else 0.0
+    d_score = float(gap_score[view_firm].max()) if bool(view_firm.any()) else 0.0
+    firm = view_firm & (argmax_margin(ep_p["grasp_angle_cls_pred"], 2) > 2 * d_ang).all(dim=-1)
     ang = ep_p["grasp_angle_cls_pred"].argmax(dim=2, keepdim=True)
     score_at = ep_p["grasp_score_pred"].gather(2, ang)[:, :, 0]
     firm &= argmax_margin(score_at, 2) > 2 * d_score
@@ -185,9 +250,11 @@ def compare_decoded(ep, ep_p, grasps, grasps_p, valid, valid_p, what: str) -> st
     for key, v in ep.items():
         if v is not None and v.is_floating_point():
             require(bool(torch.isfinite(v).all()), f"{what}: non-finite values in {key}")
-    return (f"valid exact, grasps max err {float(row_err[~differ].max()):.3g} on "
-            f"{int((~differ).sum())}/{differ.numel()} seeds, {int(differ.sum())} near-tie seeds "
-            f"decode another angle or depth (head gaps angle {d_ang:.3g}, score {d_score:.3g})")
+    ties = int((~obj_firm).sum()) + int((~view_firm).sum())
+    return (f"valid equal{'' if ties == 0 else f' ({ties} objectness or top-view near ties)'}, grasps max err "
+            f"{float(row_err[~differ].max()):.3g} on {int((~differ).sum())}/{differ.numel()} seeds, "
+            f"{int(differ.sum())} near-tie seeds decode another view, angle or depth (head gaps angle "
+            f"{d_ang:.3g}, score {d_score:.3g})")
 
 
 def profile_calls(fns: dict, calls: int = 3) -> None:
@@ -218,6 +285,64 @@ def profile_calls(fns: dict, calls: int = 3) -> None:
             "busy_share": dev_ms / wall,
             "top": [[e.key[:70], e.self_device_time_total / 1e3 / calls, e.count // calls] for e in top],
         }))
+
+
+def check_pipeline(name: str, infer, cloud) -> dict:
+    """Phase 7 for one pipeline: run it through the kernels (every kernel
+    of PATH_KERNELS[name] launched), then its stages through the kernels and
+    through the plain versions: segment labels and OBS seeds exact, decoded
+    grasps as compare_decoded, the same keep masks from the kernel and the
+    plain postprocess on identical grasps. Returns the launch counts."""
+    import torch
+
+    from graspbalance_tpu_torch import _build
+    from graspbalance_tpu_torch.eval.obs import object_balance_indices
+    from graspbalance_tpu_torch.models import pred_decode
+
+    m = infer.model.backbone.num_seed
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        g_np, keep_np = infer(cloud)
+        torch.cuda.synchronize()
+        launches = dict(_build.launches)
+        require(all(launches[n] > 0 for n in PATH_KERNELS[name]),
+                f"{name}: a kernel of the path was not launched: {launches}")
+        require(g_np.shape == (BATCH, m, 17) and keep_np.shape == (BATCH, m), f"{name}: output shapes")
+        require(bool(torch.isfinite(torch.from_numpy(g_np)).all()), f"{name}: non-finite grasps")
+
+        # the same stages, kernel against plain
+        msg = ""
+        if infer.use_obs:
+            labels_k, sa_k = infer.segment(cloud)
+            labels_p, sa_p = infer.segment(cloud, plain=True)
+            require(torch.equal(sa_k, sa_p), f"{name}: shared FPS differs")
+            require(torch.equal(labels_k, labels_p), f"{name}: segment labels differ between kernel and plain")
+            obs_k = object_balance_indices(cloud, labels_k, num_seed=m)
+            obs_p = object_balance_indices(cloud, labels_k, num_seed=m, plain=True)
+            require(torch.equal(obs_k, obs_p), f"{name}: OBS seeds differ between kernel and plain")
+            msg = (f"labels exact ({int(labels_k.amax(dim=1).min())}-{int(labels_k.amax(dim=1).max())} "
+                   f"clusters per scene), OBS seeds exact; ")
+        ep = infer.forward(cloud)
+        ep_p = infer.forward(cloud, plain=True)
+        g, v = pred_decode(ep)
+        g_p, v_p = pred_decode(ep_p)
+        msg += compare_decoded(ep, ep_p, g, g_p, v, v_p, name)
+        keep_k = infer.postprocess(g, v, cloud)
+        keep_p = infer.postprocess(g, v, cloud, plain=True)
+        require(torch.equal(keep_k, keep_p), f"{name}: keep masks differ on identical grasps")
+        # the same with every seed valid, so that NMS and the collision
+        # filter decide every grasp whatever the random objectness says
+        all_valid = torch.ones_like(v)
+        keep_all_k = infer.postprocess(g, all_valid, cloud)
+        keep_all_p = infer.postprocess(g, all_valid, cloud, plain=True)
+        require(torch.equal(keep_all_k, keep_all_p), f"{name}: keep masks differ on identical all-valid grasps")
+        keep_e2e_p = infer.postprocess(g_p, v_p, cloud, plain=True)
+    print(f"GraspInference {name}: launches {launches}; {msg}; keep masks equal on "
+          f"identical grasps ({int(keep_k.sum())} kept of {int(v.sum())} valid; with every seed "
+          f"valid {int(keep_all_k.sum())} of {v.numel()} kept); "
+          f"end to end {int((keep_k != keep_e2e_p).sum())} keep entries differ")
+    return launches
 
 
 @contextlib.contextmanager
@@ -293,6 +418,251 @@ def scatter_phase(calls) -> tuple[tuple, float, tuple]:
           f"(within the f32 summation bound everywhere)")
     # one add per (row, channel): the bytes bind
     return tuple(times), max_err, bound(nbytes, sum(ct.numel() for ct, _, _ in calls))
+
+
+def capture_mlpmax(fn) -> list:
+    """(parts, weights, reduction) of every mlp-max kernel launch that
+    ``fn()`` makes (the parts copied, for the comparisons); the launches
+    themselves run as usual."""
+    from graspbalance_tpu_torch.ops import mlpmax
+
+    real = mlpmax.mlp_max_fused
+    launched = []
+
+    def recording(parts, weights, *, reduction="max"):
+        launched.append((tuple(p.clone() for p in parts), weights, reduction))
+        return real(parts, weights, reduction=reduction)
+
+    mlpmax.mlp_max_fused = recording
+    try:
+        fn()
+    finally:
+        mlpmax.mlp_max_fused = real
+    return launched
+
+
+def mlpmax_phase(calls) -> tuple[tuple, float, tuple]:
+    """The mlp-max kernel against its plain version on each captured call:
+    within MLPMAX_TOL (abs + rel), two launches bit-equal. Returns (kernel,
+    plain ms summed over the calls, None), the largest error, the bound."""
+    import torch
+
+    from graspbalance_tpu_torch.ops.mlpmax import mlp_max_fused, mlp_max_fused_plain
+
+    max_err, nbytes, ops, t_k, t_p = 0.0, 0.0, 0.0, 0.0, 0.0
+    shapes = []
+    for parts, weights, reduction in calls:
+        run = functools.partial(mlp_max_fused, parts, weights, reduction=reduction)
+        run_p = functools.partial(mlp_max_fused_plain, parts, weights, reduction=reduction)
+        got, want = run(), run_p()
+        err = (got - want).abs()
+        require(bool((err <= MLPMAX_TOL * (1.0 + want.abs())).all()),
+                f"mlp-max kernel error {float(err.max())} beyond {MLPMAX_TOL} abs + rel at "
+                f"{[tuple(p.shape) for p in parts]}")
+        require(torch.equal(got, run()), f"mlp-max kernel not deterministic at {tuple(parts[0].shape)}")
+        max_err = max(max_err, float(err.max()))
+        t_k += cuda_ms(run, 3)
+        t_p += cuda_ms(run_p, 1)
+        b, n, k, _ = parts[0].shape
+        layers = [torch.cat(weights[0][0], dim=0)] + [w for w, _ in weights[1:]]
+        rows = b * n * k
+        # per row and layer a multiply-add per weight, a bias add and a
+        # ReLU per output; the reduction one operation per row and channel
+        ops += rows * sum(2.0 * w.shape[0] * w.shape[1] + 2.0 * w.shape[1] for w in layers)
+        ops += rows * layers[-1].shape[1]
+        nbytes += sum(p.numel() for p in parts) * 4 + got.numel() * 4
+        nbytes += sum(w.numel() + w.shape[1] for w in layers) * 4
+        shapes.append(f"({n}, K={k}, {'+'.join(str(p.shape[-1]) for p in parts)}->"
+                      f"{'->'.join(str(w.shape[1]) for w in layers)})")
+    print(f"mlp-max: {len(calls)} calls at bs={BATCH}: {', '.join(shapes)}; max err {max_err:.3g} "
+          f"(within {MLPMAX_TOL} abs + rel), two launches bit-equal")
+    return (t_k, t_p, None), max_err, bound(nbytes, ops)
+
+
+def fused_phase(model, dsn, cloud, smi: str):
+    """Phases 10-13 (see the module docstring): the fused eval
+    configuration on the same weights as ``model``. Returns (path_launches,
+    times, errs, bounds) of its paths and of the mlp-max, width-MLP-rel and
+    select kernels."""
+    import torch
+
+    from graspbalance_tpu_torch import _build
+    from graspbalance_tpu_torch.eval.pipeline import GraspInference
+    from graspbalance_tpu_torch.models import GraspBalance, pred_decode
+    from graspbalance_tpu_torch.ops.multicyl import multi_cylinder_group
+    from graspbalance_tpu_torch.ops.query import class_plane, multi_cylinder_query
+    from graspbalance_tpu_torch.ops.select import multicyl_select, multicyl_select_plain
+    from graspbalance_tpu_torch.ops.widthmlp import width_mlp_fused, width_mlp_fused_plain
+
+    fused = GraspBalance(fused_backbone_min_nsample=0, width_impl="fused_pallas")
+    fused.load_state_dict(model.state_dict(), strict=True)  # the same variables
+    fused = fused.to(cloud.device).eval()
+    wg = fused.width_grouping
+    launches, times, errs, bounds = {}, {}, {}, {}
+
+    # 10. the fused kernels against their plain versions at this path's shapes
+    with torch.no_grad():
+        ep = {}
+        calls = capture_mlpmax(lambda: ep.update(fused(cloud)))
+        require(len(calls) == FUSED_MLPMAX_LAUNCHES,
+                f"the fused forward made {len(calls)} mlp-max calls, not {FUSED_MLPMAX_LAUNCHES}")
+        times["mlpmax"], errs["mlpmax"], bounds["mlpmax"] = mlpmax_phase(calls)
+        del calls
+
+        # the width MLP on the query's gripper-frame coordinates of this
+        # forward's seeds and top-view rotations
+        seeds, rot = ep["fp2_xyz"].contiguous(), ep["grasp_top_view_rot"].contiguous()
+        qargs = (cloud, seeds, rot, wg.radii, wg.hmin, wg.hmax_list, wg.nsample)
+        idx, rel = multi_cylinder_group(*qargs, emit_rel=True)
+        weights = wg.folded_weights()
+        got, want = width_mlp_fused(rel, weights), width_mlp_fused_plain(rel, weights)
+        errs["widthmlp_rel"] = float((got - want).abs().max())
+        require(errs["widthmlp_rel"] <= WIDTHMLP_TOL, f"width MLP (rel) error {errs['widthmlp_rel']} > {WIDTHMLP_TOL}")
+        require(torch.equal(got, width_mlp_fused(rel, weights)), "width MLP (rel) kernel not deterministic")
+        times["widthmlp_rel"] = (cuda_ms(lambda: width_mlp_fused(rel, weights), 5),
+                                 cuda_ms(lambda: width_mlp_fused_plain(rel, weights), 2), None)
+        b, n_r, n_h, m, k = idx.shape
+        macs = sum(w.shape[0] * w.shape[1] for scale in weights for w, _ in scale)
+        bounds["widthmlp_rel"] = bound(rel.numel() * 4 + got.numel() * 4, 2.0 * macs * b * m * n_h * k)
+        print(f"width MLP (rel): {tuple(rel.shape)} -> {tuple(got.shape)} max err {errs['widthmlp_rel']:.3g} "
+              f"(max |out| {float(want.abs().max()):.3g}), two launches bit-equal")
+        del rel, got, want
+
+        # the class-plane selection on the same seeds: the same indices as
+        # its plain version and as the cylinder query's kernel
+        cls = class_plane(*qargs[:6]).reshape(b * m, -1)
+        sel = multicyl_select(cls, n_r, n_h, k)
+        require(torch.equal(sel, multicyl_select_plain(cls, n_r, n_h, k)),
+                f"select kernel != plain: {int((sel != multicyl_select_plain(cls, n_r, n_h, k)).sum())} differ")
+        require(torch.equal(sel.reshape(b, m, n_r, n_h, k).permute(0, 2, 3, 1, 4), idx),
+                "select kernel != the cylinder query's indices")
+        require(torch.equal(sel, multicyl_select(cls, n_r, n_h, k)), "select kernel not deterministic")
+        errs["select"] = 0
+        times["select"] = (cuda_ms(lambda: multicyl_select(cls, n_r, n_h, k), 5),
+                           cuda_ms(lambda: multicyl_select_plain(cls, n_r, n_h, k), 1), None)
+        # each row is read up to its last combo's k-th hit (all N where a
+        # combo has fewer): a byte and 2 + 3 per combo operations per point
+        full = sel[..., -1] != sel[..., 0]
+        scan = float(torch.where(full, sel[..., -1].long() + 1, cls.shape[1]).amax(dim=1).sum())
+        bounds["select"] = bound(scan + sel.numel() * 4, scan * (2 + 3 * n_r * n_h))
+        # the op-level query that runs it, once
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        sel_q = multi_cylinder_query(*qargs, impl="select")
+        torch.cuda.synchronize()
+        launches["select_query"] = dict(_build.launches)
+        require(launches["select_query"]["select"] == 1 and torch.equal(sel_q, idx),
+                f"multi_cylinder_query(impl='select'): launches {launches['select_query']}, "
+                f"indices equal to the kernel query's: {torch.equal(sel_q, idx)}")
+        print(f"select: class plane {tuple(cls.shape)} {cls.dtype}, {n_r}x{n_h} combos, k={k}: indices "
+              f"exact against the plain version and the cylinder query's kernel; "
+              f"{scan / cls.numel():.3f} of the plane scanned")
+        del cls, sel, sel_q, idx
+
+    # 11. the fused forward + decode through the kernels, through the plain
+    # versions, and against the default configuration
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        ep = fused(cloud)
+        grasps, valid = pred_decode(ep)
+        torch.cuda.synchronize()
+        launches["fused_main"] = dict(_build.launches)
+        fl = launches["fused_main"]
+        require(all(fl[n] > 0 for n in PATH_KERNELS["fused_main"]) and fl["mlpmax"] == FUSED_MLPMAX_LAUNCHES
+                and fl["widthmlp_rel"] == 1 and fl["widthmlp"] == 0,
+                f"fused forward+decode: launches {fl}; needs mlpmax {FUSED_MLPMAX_LAUNCHES}, widthmlp_rel 1, "
+                f"widthmlp 0, fps and multicyl > 0")
+        ep_p = fused(cloud, plain=True)
+        grasps_p, valid_p = pred_decode(ep_p)
+        msg_p = compare_decoded(ep, ep_p, grasps, grasps_p, valid, valid_p, "fused forward+decode")
+        del ep_p
+        ep_d = model(cloud)
+        grasps_d, valid_d = pred_decode(ep_d)
+        msg_d = compare_decoded(ep, ep_d, grasps, grasps_d, valid, valid_d, "fused vs default forward+decode")
+        print(f"fused forward+decode: launches {fl}; kernel vs plain: {msg_p}; against the default "
+              f"configuration: {msg_d}")
+        del ep, ep_d
+
+    # 12. GraspInference without and with OBS on the fused model
+    pipelines = {"fused_no_obs": GraspInference(fused), "fused_obs": GraspInference(fused, dsn, use_obs=True)}
+    for name, infer in pipelines.items():
+        launches[name] = check_pipeline(name, infer, cloud)
+        require(launches[name]["mlpmax"] == FUSED_MLPMAX_LAUNCHES and launches[name]["widthmlp"] == 0,
+                f"{name}: launches {launches[name]}")
+
+    # 13. the fused and the default forward + decode, in alternating rounds
+    configs = {"default": model, "fused": fused}
+    iters = {name: [] for name in configs}
+    with torch.no_grad():
+        for net in configs.values():  # warm-up
+            pred_decode(net(cloud))
+        for r in range(FUSED_ROUNDS):
+            for name in (("default", "fused") if r % 2 == 0 else ("fused", "default")):
+                for _ in range(FUSED_ITERS):
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    pred_decode(configs[name](cloud))
+                    torch.cuda.synchronize()
+                    iters[name].append(time.perf_counter() - t1)
+    for name, its in iters.items():
+        print(f"forward+decode {name} configuration, alternating rounds, bs={BATCH}, {NUM_POINTS} pts: "
+              f"{rate_line(its)} ({smi})")
+    # the profiler's device time of each configuration's forward + decode
+    # and of the two layers they differ in: the backbone after FPS, and the
+    # width head (query + MLPs) on the configuration's own seeds and
+    # top-view rotations
+    calls = {}
+    with torch.no_grad():
+        sa_inds = fused.backbone(cloud)["sa1_inds"]
+        for name, net in configs.items():
+            ep = net.backbone(cloud, sa_inds=sa_inds)
+            ep.update(net.graspable(ep["fp2_xyz"], ep["fp2_features"]))
+            calls[f"forward+decode {name}"] = functools.partial(lambda net: pred_decode(net(cloud)), net)
+            calls[f"backbone {name}"] = functools.partial(net.backbone, cloud, sa_inds=sa_inds)
+            calls[f"width head {name}"] = functools.partial(
+                net.width_grouping, ep["fp2_xyz"], cloud, ep["grasp_top_view_rot"])
+        profile_calls(calls)
+    return launches, times, errs, bounds
+
+
+def probe_phase():
+    """Phase 14: the table gather on the probe's four cases (its launches
+    counted), exactly against its plain version and torch.gather, then
+    timed beside both at the probe's benchmark case. Returns (launches,
+    times, max error, bound)."""
+    import numpy as np
+    import torch
+
+    from graspbalance_tpu_torch import _build
+    from graspbalance_tpu_torch.ops.table_gather import table_gather, table_gather_plain
+
+    def case(dim, m, n, seed):  # tools/probe_mosaic_gather.py's inputs
+        x = np.random.RandomState(seed).rand(m, n).astype(np.float32)
+        idx = np.random.RandomState(seed + 1).randint(0, m if dim == 0 else n, (m, n)).astype(np.int32)
+        return torch.from_numpy(x).cuda(), torch.from_numpy(idx).cuda(), dim
+
+    cases = [case(0, 512, 128, 0), case(0, 19968, 128, 10), case(1, 512, 128, 20), case(0, 2048, 512, 30)]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    outs = [table_gather(*c) for c in cases]
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    require(launches["table_gather"] == len(cases), f"probe: launches {launches}")
+    for (x, idx, dim), out in zip(cases, outs):
+        require(torch.equal(out, table_gather_plain(x, idx, dim)), f"table gather != plain at {tuple(x.shape)}")
+        require(torch.equal(out, torch.gather(x, dim, idx.long())), f"table gather != torch.gather at {tuple(x.shape)}")
+        require(torch.equal(out, table_gather(x, idx, dim)), f"table gather not deterministic at {tuple(x.shape)}")
+    x, idx, dim = case(0, 19968, 128, 7)  # bench_dim0's case
+    idx_l = idx.long()
+    times = (cuda_ms(lambda: table_gather(x, idx, dim), PROBE_REPS),
+             cuda_ms(lambda: table_gather_plain(x, idx, dim), PROBE_REPS),
+             cuda_ms(lambda: torch.gather(x, dim, idx_l), PROBE_REPS))
+    print(f"table gather: dim 0 (512, 128), dim 0 (19968, 128), dim 1 (512, 128), dim 0 (2048, 512) exact "
+          f"against the plain version and torch.gather; at dim 0 (19968, 128): {times[0]:.4f} ms "
+          f"(plain {times[1]:.4f}, torch.gather {times[2]:.4f})")
+    # an index in, a table value in once, a value out: 12 bytes per element
+    return launches, times, 0, bound(12.0 * x.numel(), 0.0)
 
 
 def train_phase(dev, smi: str):
@@ -631,50 +1001,7 @@ def main() -> int:
         "no_obs": GraspInference(model),
         "obs": GraspInference(model, dsn, use_obs=True),
     }
-    path_launches = {}
-    with torch.no_grad():
-        for name, infer in pipelines.items():
-            torch.cuda.synchronize()
-            _build.reset_launches()
-            g_np, keep_np = infer(cloud)
-            torch.cuda.synchronize()
-            path_launches[name] = dict(_build.launches)
-            require(all(path_launches[name][n] > 0 for n in PATH_KERNELS[name]),
-                    f"{name}: a kernel of the path was not launched: {path_launches[name]}")
-            require(g_np.shape == (BATCH, m, 17) and keep_np.shape == (BATCH, m), f"{name}: output shapes")
-            require(bool(torch.isfinite(torch.from_numpy(g_np)).all()), f"{name}: non-finite grasps")
-
-            # the same stages, kernel against plain
-            msg = ""
-            if infer.use_obs:
-                labels_k, sa_k = infer.segment(cloud)
-                labels_p, sa_p = infer.segment(cloud, plain=True)
-                require(torch.equal(sa_k, sa_p), f"{name}: shared FPS differs")
-                require(torch.equal(labels_k, labels_p), f"{name}: segment labels differ between kernel and plain")
-                obs_k = object_balance_indices(cloud, labels_k, num_seed=m)
-                obs_p = object_balance_indices(cloud, labels_k, num_seed=m, plain=True)
-                require(torch.equal(obs_k, obs_p), f"{name}: OBS seeds differ between kernel and plain")
-                msg = (f"labels exact ({int(labels_k.amax(dim=1).min())}-{int(labels_k.amax(dim=1).max())} "
-                       f"clusters per scene), OBS seeds exact; ")
-            ep = infer.forward(cloud)
-            ep_p = infer.forward(cloud, plain=True)
-            g, v = pred_decode(ep)
-            g_p, v_p = pred_decode(ep_p)
-            msg += compare_decoded(ep, ep_p, g, g_p, v, v_p, name)
-            keep_k = infer.postprocess(g, v, cloud)
-            keep_p = infer.postprocess(g, v, cloud, plain=True)
-            require(torch.equal(keep_k, keep_p), f"{name}: keep masks differ on identical grasps")
-            # the same with every seed valid, so that NMS and the collision
-            # filter decide every grasp whatever the random objectness says
-            all_valid = torch.ones_like(v)
-            keep_all_k = infer.postprocess(g, all_valid, cloud)
-            keep_all_p = infer.postprocess(g, all_valid, cloud, plain=True)
-            require(torch.equal(keep_all_k, keep_all_p), f"{name}: keep masks differ on identical all-valid grasps")
-            keep_e2e_p = infer.postprocess(g_p, v_p, cloud, plain=True)
-            print(f"GraspInference {name}: launches {path_launches[name]}; {msg}; keep masks equal on "
-                  f"identical grasps ({int(keep_k.sum())} kept of {int(v.sum())} valid; with every seed "
-                  f"valid {int(keep_all_k.sum())} of {v.numel()} kept); "
-                  f"end to end {int((keep_k != keep_e2e_p).sum())} keep entries differ")
+    path_launches = {name: check_pipeline(name, infer, cloud) for name, infer in pipelines.items()}
 
     # 8. timing of both pipelines
     for name, infer in pipelines.items():
@@ -718,37 +1045,31 @@ def main() -> int:
     # 9. the training step
     path_launches["train"], times["scatter"], errs["scatter"], bounds["scatter"] = train_phase(dev, smi)
 
-    sources = {"fps": "fps.cu", "multicyl": "multicyl.cu", "widthmlp": "widthmlp.cu",
-               "knn": "knn.cu", "fps_masked": "fps.cu", "collision": "collision.cu",
-               "scatter": "scatter.cu"}
-    replaces = {
-        "fps": "graspbalance_tpu/ops/pallas/fps_kernel.py:357",
-        "multicyl": "graspbalance_tpu/ops/pallas/multicyl_kernel.py:212",
-        "widthmlp": "graspbalance_tpu/ops/pallas/widthmlp_kernel.py:197",
-        "knn": "graspbalance_tpu/ops/pallas/knn_kernel.py:80",
-        "fps_masked": "graspbalance_tpu/ops/pallas/fps_kernel.py:300",
-        "collision": "graspbalance_tpu/ops/pallas/collision_kernel.py:132",
-        "scatter": "graspbalance_tpu/ops/pallas/scatter_kernel.py:81",
-    }
-    # where each kernel's launch count comes from: the OBS pipeline runs
-    # every inference kernel; the scatter-add runs only in training
-    launch_path = {name: "train" if name == "scatter" else "obs" for name in _build.KERNELS}
+    # 10-13. the fused eval configuration; 14. the table-gather probe
+    fused = fused_phase(model, dsn, cloud, smi)
+    path_launches.update(fused[0])
+    for d, new in zip((times, errs, bounds), fused[1:]):
+        d.update(new)
+    path_launches["probe"], times["table_gather"], errs["table_gather"], bounds["table_gather"] = probe_phase()
+
     table = [
         {
             "name": name,
+            "tpu_kernel": k_num,
+            **({"covered_by": measured} if measured != name else {}),
             "route": "cuda",
-            "source": f"graspbalance_tpu_torch/csrc/{sources[name]}",
-            "replaces": replaces[name],
-            "path": launch_path[name],
-            "launches": path_launches[launch_path[name]][name],
-            "max_abs_err": errs[name],
-            "ms": times[name][0],
-            "plain_ms": times[name][1],
-            "bound_ms": bounds[name][0],
-            "bound_by": bounds[name][1],
-            "library_ms": times[name][2],
+            "source": f"graspbalance_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            "path": path,
+            "launches": path_launches[path][measured],
+            "max_abs_err": errs[measured],
+            "ms": times[measured][0],
+            "plain_ms": times[measured][1],
+            "bound_ms": bounds[measured][0],
+            "bound_by": bounds[measured][1],
+            "library_ms": times[measured][2],
         }
-        for name in _build.KERNELS
+        for k_num, name, measured, source, replaces, path in KERNEL_TABLE
     ]
     print(json.dumps({"kernels": table}))
     print(json.dumps({

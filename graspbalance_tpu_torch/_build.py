@@ -29,7 +29,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
-KERNELS = ("fps", "multicyl", "widthmlp", "knn", "fps_masked", "collision", "scatter")
+KERNELS = (
+    "fps", "multicyl", "widthmlp", "knn", "fps_masked", "collision", "scatter",
+    "mlpmax", "widthmlp_rel", "select", "table_gather",
+)
 
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
@@ -44,6 +47,10 @@ _SIGNATURES = {
     "gb_fps_masked": (_P, _P, _P, _P, _I, _I, _I, _P),
     "gb_collision": (_P, _P, _P, _P, _I, _I, _I, _P),
     "gb_scatter_add": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "gb_mlpmax": (_P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _I, _I, _I, _P),
+    "gb_widthmlp_rel": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "gb_select": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "gb_table_gather": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

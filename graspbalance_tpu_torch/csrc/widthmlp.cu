@@ -1,17 +1,27 @@
-// Fused width-grouping MLPs of the grasp head, with the gripper rotation and
-// the centre subtraction folded into layer 0, then a max over the K
+// Fused width-grouping MLPs of the grasp head, then a max over the K
 // neighbours. Eval only: BatchNorm is folded into the weights by the caller.
+// Two entry points share one kernel body:
 //
-// Replaces graspbalance_tpu/ops/pallas/widthmlp_kernel.py:width_mlp_fused_rot.
+//   gb_widthmlp     replaces graspbalance_tpu/ops/pallas/widthmlp_kernel.py:
+//                   width_mlp_fused_rot: raw neighbour coordinates, seed-major
+//                   (B, S, R, H, K, 3), with the gripper rotation and the
+//                   centre subtraction folded into per-seed layer-0 weights;
+//                   out (B, S, H, R * C3), the default eval path.
+//   gb_widthmlp_rel replaces widthmlp_kernel.py:width_mlp_fused: neighbour
+//                   coordinates already in the gripper frame, scale-major
+//                   (B, R, H, S, K, 3) as the cylinder query's emit_rel gives
+//                   them, with each scale's shared layer-0 weights; out
+//                   (B, H, S, R * C3), the width head's impl='fused_pallas'.
 //
-// Per (batch b, seed s, scale r, depth h), with x the K raw neighbour
-// coordinates (K, 3):
-//   h1 = relu(x @ W0_eff[b, s, :, r] + b0_eff[b, s, r])   (K, C1)
+// Per (batch b, seed s, scale r, depth h), with x the K coordinates (K, 3):
+//   h1 = relu(x @ W0 + b0)                                (K, C1)
 //   h2 = relu(h1 @ W1[r] + b1[r])                         (K, C2)
 //   h3 = relu(h2 @ W2[r] + b2[r])                         (K, C3)
-//   out[b, s, h, r * C3 : (r + 1) * C3] = max over K of h3
-// where W0_eff = rot @ W0 and b0_eff = b0 - c @ W0_eff are built per seed by
-// the wrapper, so ((p - c) @ rot) @ W0 + b0 == p @ W0_eff + b0_eff.
+//   out[..., r * C3 : (r + 1) * C3] = max over K of h3
+// where for gb_widthmlp W0 = W0_eff[b, s, :, r] = rot @ W0[r] and b0 =
+// b0_eff[b, s, r] = b0[r] - c @ W0_eff are built per seed by the wrapper, so
+// ((p - c) @ rot) @ W0 + b0 == p @ W0_eff + b0_eff; for gb_widthmlp_rel W0 =
+// W0[r] and b0 = b0[r].
 //
 // What bounds it on the H100: FP32 arithmetic. At the main path's shapes
 // (B=4, S=1024, R=H=4, K=64, widths 64-128-256) the three layers are
@@ -43,6 +53,8 @@ constexpr int kRowGroups = kThreads / 32;    // one warp per 8 rows
 constexpr int kRows = kK / kRowGroups;       // rows per thread
 static_assert(kRows == 8, "tiling assumes 8 rows per warp");
 
+// kRelLayout false: gb_widthmlp's layouts; true: gb_widthmlp_rel's.
+template <bool kRelLayout>
 __global__ void __launch_bounds__(kThreads)
     widthmlp_kernel(const float* __restrict__ grouped, const float* __restrict__ w0_eff,
                     const float* __restrict__ b0_eff, const float* __restrict__ w1,
@@ -75,13 +87,19 @@ __global__ void __launch_bounds__(kThreads)
   const size_t bs = static_cast<size_t>(b) * s_count + s;
   const int rc1 = r_count * kC1;
 
-  const float* xg = grouped + (((bs * r_count + r) * h_count + h) * kK) * 3;
+  // this block's K coordinates and its layer-0 weights (3 x C1) and biases
+  const size_t x_off = kRelLayout
+                           ? (((static_cast<size_t>(b) * r_count + r) * h_count + h) * s_count + s)
+                           : ((bs * r_count + r) * h_count + h);
+  const float* xg = grouped + x_off * kK * 3;
   for (int e = t; e < kK * 3; e += kThreads) xs[e] = xg[e];
   for (int e = t; e < 3 * kC1; e += kThreads) {
     const int j = e / kC1, c = e % kC1;
-    w0s[e] = w0_eff[(bs * 3 + j) * rc1 + r * kC1 + c];
+    w0s[e] = kRelLayout ? w0_eff[(static_cast<size_t>(r) * 3 + j) * kC1 + c]
+                        : w0_eff[(bs * 3 + j) * rc1 + r * kC1 + c];
   }
-  for (int c = t; c < kC1; c += kThreads) b0s[c] = b0_eff[bs * rc1 + r * kC1 + c];
+  for (int c = t; c < kC1; c += kThreads)
+    b0s[c] = kRelLayout ? b0_eff[r * kC1 + c] : b0_eff[bs * rc1 + r * kC1 + c];
   __syncthreads();
 
   // layer 0: rows rg*8.., columns lane + 32*jj
@@ -165,11 +183,13 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
+  const size_t out_row = kRelLayout ? (static_cast<size_t>(b) * h_count + h) * s_count + s
+                                    : bs * h_count + h;
   for (int c = t; c < kC3; c += kThreads) {
     float mx = red[c];
 #pragma unroll
     for (int g = 1; g < kRowGroups; ++g) mx = fmaxf(mx, red[g * kC3 + c]);
-    out[(bs * h_count + h) * (static_cast<size_t>(r_count) * kC3) + r * kC3 + c] = mx;
+    out[out_row * (static_cast<size_t>(r_count) * kC3) + r * kC3 + c] = mx;
   }
 }
 
@@ -183,8 +203,22 @@ extern "C" int gb_widthmlp(const float* grouped, const float* w0_eff, const floa
                            float* out, int b, int s, int r, int h, void* stream) {
   const long long blocks = static_cast<long long>(b) * s * r * h;
   if (blocks < 1 || blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  widthmlp_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(grouped, w0_eff, b0_eff, w1, b1, w2,
-                                                         b2, out, s, r, h);
+  widthmlp_kernel<false><<<static_cast<unsigned>(blocks), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(grouped, w0_eff, b0_eff, w1, b1,
+                                                                w2, b2, out, s, r, h);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// rel: (B, R, H, S, 64, 3); w0: (R, 3, 64); b0: (R, 64); w1: (R, 64, 128);
+// b1: (R, 128); w2: (R, 128, 256); b2: (R, 256); out: (B, H, S, R*256). All
+// f32, contiguous.
+extern "C" int gb_widthmlp_rel(const float* rel, const float* w0, const float* b0,
+                               const float* w1, const float* b1, const float* w2, const float* b2,
+                               float* out, int b, int s, int r, int h, void* stream) {
+  const long long blocks = static_cast<long long>(b) * s * r * h;
+  if (blocks < 1 || blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  widthmlp_kernel<true><<<static_cast<unsigned>(blocks), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(rel, w0, b0, w1, b1, w2, b2, out,
+                                                               s, r, h);
   return static_cast<int>(cudaGetLastError());
 }

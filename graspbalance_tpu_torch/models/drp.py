@@ -13,8 +13,9 @@ import torch
 from torch import nn
 
 from graspbalance_tpu_torch import ops
-from graspbalance_tpu_torch.nn.layers import MLPBlock
+from graspbalance_tpu_torch.nn.layers import MLPBlock, fused_eval_ok
 from graspbalance_tpu_torch.nn.sa_fp import FeaturePropagation, SetAbstraction
+from graspbalance_tpu_torch.ops import mlpmax
 from graspbalance_tpu_torch.ops.fps import furthest_point_sample_plain
 
 
@@ -22,16 +23,30 @@ class LocalAggregation(nn.Module):
     """Ball-query neighbourhood aggregation, 'dp_fj' features, max reduction,
     in the lifted form: the block's linear layer commutes with the gather,
     ``[p_j - c_i, f_j] @ W == [p_j, f_j] @ W - [c_i, 0] @ W``, so both
-    products run on N rows and one gather moves their difference's terms."""
+    products run on N rows and one gather moves their difference's terms.
 
-    def __init__(self, channels: int, radius: float, nsample: int):
+    ``fused_min_nsample`` (None: off) turns on the fused eval branch for
+    ``nsample >= fused_min_nsample`` (``nn.layers.fused_eval_ok``): the
+    grouped ``dp | fj`` rows (two gathers, never concatenated) go through the
+    BN-folded block and the max over K in one kernel (ops/mlpmax.py). It
+    runs the block on N x K rows, where the lifted form runs it on N."""
+
+    def __init__(self, channels: int, radius: float, nsample: int, *, fused_min_nsample: int | None = None):
         super().__init__()
         self.radius = radius
         self.nsample = nsample
+        self.fused_min_nsample = fused_min_nsample
         self.conv = MLPBlock(3 + channels, channels)
 
-    def forward(self, xyz: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
+    def forward(self, xyz: torch.Tensor, feats: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
+        """``plain`` runs the fused branch's kernel as its plain version."""
         idx = ops.ball_query(xyz, xyz, self.radius, self.nsample)
+        if fused_eval_ok(self, feats):
+            dp = ops.group_points(xyz, idx) - xyz.unsqueeze(2)
+            fj = ops.group_points(feats, idx)
+            w0, b0 = self.conv.fold()
+            fused = mlpmax.mlp_max_fused_plain if plain else mlpmax.mlp_max_fused
+            return fused((dp, fj), (((w0[:3], w0[3:]), b0),))
         e = self.conv(torch.cat([xyz, feats], dim=-1), stage="dense")
         cw = self.conv(torch.cat([xyz, torch.zeros_like(feats)], dim=-1), stage="dense")
         pre = ops.group_points(e, idx) - cw.unsqueeze(2)
@@ -44,14 +59,14 @@ EXPANSION = 4  # InvResMLP's pointwise width multiple
 class InvResMLP(nn.Module):
     """LocalAggregation -> [C -> 4C (BN+ReLU) -> C (BN)] -> +residual -> ReLU."""
 
-    def __init__(self, channels: int, radius: float, nsample: int):
+    def __init__(self, channels: int, radius: float, nsample: int, *, fused_min_nsample: int | None = None):
         super().__init__()
-        self.local_agg = LocalAggregation(channels, radius, nsample)
+        self.local_agg = LocalAggregation(channels, radius, nsample, fused_min_nsample=fused_min_nsample)
         self.pw1 = MLPBlock(channels, channels * EXPANSION)
         self.pw2 = MLPBlock(channels * EXPANSION, channels, act=False)
 
-    def forward(self, xyz: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
-        f = self.pw2(self.pw1(self.local_agg(xyz, feats)))
+    def forward(self, xyz: torch.Tensor, feats: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
+        f = self.pw2(self.pw1(self.local_agg(xyz, feats, plain=plain)))
         return torch.relu(f + feats)
 
 
@@ -65,25 +80,33 @@ DRP_STAGES = (
 
 
 class DRP(nn.Module):
-    """Modules are named as in the flax tree: sa{i}, block{i}_{j}, fp1, fp2."""
+    """Modules are named as in the flax tree: sa{i}, block{i}_{j}, fp1, fp2.
 
-    def __init__(self, stages=DRP_STAGES, num_seed: int = 1024):
+    ``fused_backbone_min_nsample`` is the fused eval configuration of the
+    JAX package's ``fused_eval_ok``: None (the default) keeps it off; 0 fuses
+    every set abstraction and local aggregation (``GB_FORCE_FUSED_EVAL``'s
+    set), 64 those with K >= 64 (``GB_FUSED_BACKBONE``'s set). It applies in
+    eval mode to float32 only."""
+
+    def __init__(self, stages=DRP_STAGES, num_seed: int = 1024, *, fused_backbone_min_nsample: int | None = None):
         super().__init__()
         self.stages = tuple(stages)
         self.num_seed = num_seed
+        fused = fused_backbone_min_nsample
         c = 0  # the clouds carry xyz only
         for i, (_, radius, nsample, mlp, n_blocks, b_radius, b_nsample) in enumerate(self.stages):
-            self.add_module(f"sa{i + 1}", SetAbstraction(c, radius, nsample, mlp))
+            self.add_module(f"sa{i + 1}", SetAbstraction(c, radius, nsample, mlp, fused_min_nsample=fused))
             c = mlp[-1]
             for j in range(n_blocks):
-                self.add_module(f"block{i + 1}_{j}", InvResMLP(c, b_radius, b_nsample))
+                self.add_module(f"block{i + 1}_{j}", InvResMLP(c, b_radius, b_nsample, fused_min_nsample=fused))
         widths = [s[3][-1] for s in self.stages]
         self.fp1 = FeaturePropagation(widths[3] + widths[2], (256, 256))
         self.fp2 = FeaturePropagation(256 + widths[1], (256, 256))
 
     def forward(self, pointcloud: torch.Tensor, *, sa_inds=None, plain: bool = False) -> dict:
         """pointcloud (B, N, 3); sa_inds optional (B, npoint_1) FPS indices.
-        ``plain`` runs FPS's plain PyTorch version instead of the kernel.
+        ``plain`` runs the plain PyTorch versions of FPS and of the fused
+        branches' kernel instead of the kernels.
 
         Returns input_xyz, input_features (None), sa1_inds,
         sa{1..4}_{xyz,features}, fp2_features (B, num_seed, 256), fp2_xyz,
@@ -105,9 +128,9 @@ class DRP(nn.Module):
                 inds = sa_inds
             else:  # nested-prefix FPS: the first npoint of the running order
                 inds = torch.arange(npoint, device=xyz.device).expand(xyz.shape[0], npoint)
-            cur_xyz, cur_feats = getattr(self, f"sa{i + 1}")(cur_xyz, cur_feats, inds)
+            cur_xyz, cur_feats = getattr(self, f"sa{i + 1}")(cur_xyz, cur_feats, inds, plain=plain)
             for j in range(n_blocks):
-                cur_feats = getattr(self, f"block{i + 1}_{j}")(cur_xyz, cur_feats)
+                cur_feats = getattr(self, f"block{i + 1}_{j}")(cur_xyz, cur_feats, plain=plain)
             out[f"sa{i + 1}_xyz"] = cur_xyz
             out[f"sa{i + 1}_features"] = cur_feats
             stage_xyz.append(cur_xyz)

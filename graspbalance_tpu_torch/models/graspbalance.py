@@ -42,13 +42,27 @@ from graspbalance_tpu_torch.ops.interpolate import interpolate_features
 
 class GraspBalance(nn.Module):
     """The JAX model's fields that the tests vary; the others are constants
-    of the heads (12 angles, 4 depths, cylinder radius 0.08 at 4 scales)."""
+    of the heads (12 angles, 4 depths, cylinder radius 0.08 at 4 scales).
 
-    def __init__(self, *, num_view: int = 300, backbone_stages=DRP_STAGES, num_seed: int = 1024):
+    The fused eval configuration, off by default: ``fused_backbone_min_nsample``
+    (see ``DRP``) fuses the backbone's grouping modules, and
+    ``width_impl='fused_pallas'`` runs the width head on the query's
+    gripper-frame coordinates (``MultiScaleWidthGrouping``'s ``impl``). Both
+    keep the same variables."""
+
+    def __init__(
+        self,
+        *,
+        num_view: int = 300,
+        backbone_stages=DRP_STAGES,
+        num_seed: int = 1024,
+        fused_backbone_min_nsample: int | None = None,
+        width_impl: str = "auto",
+    ):
         super().__init__()
-        self.backbone = DRP(backbone_stages, num_seed=num_seed)
+        self.backbone = DRP(backbone_stages, num_seed=num_seed, fused_backbone_min_nsample=fused_backbone_min_nsample)
         self.graspable = GraspableDetection(num_view)
-        self.width_grouping = MultiScaleWidthGrouping()
+        self.width_grouping = MultiScaleWidthGrouping(impl=width_impl)
         self.fuse_multi_scale = nn.Linear(len(SCALES) * 256, 256)
         self.gate_fusion = nn.Linear(SEED_FEATURES, 256)
         self.grasp_params = GraspParametersHead()

@@ -23,7 +23,12 @@ from graspbalance_tpu_torch.labels.geometry import (
 from graspbalance_tpu_torch.nn.layers import MLPBlock, SharedMLP
 from graspbalance_tpu_torch.ops.gather import group_points
 from graspbalance_tpu_torch.ops.multicyl import multi_cylinder_group, multi_cylinder_group_plain
-from graspbalance_tpu_torch.ops.widthmlp import width_mlp_fused_rot, width_mlp_fused_rot_plain
+from graspbalance_tpu_torch.ops.widthmlp import (
+    width_mlp_fused,
+    width_mlp_fused_plain,
+    width_mlp_fused_rot,
+    width_mlp_fused_rot_plain,
+)
 
 SEED_FEATURES = 256
 NUM_ANGLE = 12
@@ -62,23 +67,36 @@ class GraspableDetection(nn.Module):
 
 
 class MultiScaleWidthGrouping(nn.Module):
-    """All four cylinder-radius scales of the width-grouping head:
+    """All four cylinder-radius scales of the width-grouping head.
+
+    ``impl='auto'`` (the default):
 
     1. one multi-cylinder query computes the 4 radii x 4 depths neighbour
-       indices (kernel 2);
+       indices (ops/multicyl.py);
     2. eval mode: a seed-major gather of the raw neighbour coordinates,
        then each scale's BN-folded MLP 3 -> 64 -> 128 -> 256 with the
        rotation and center folded into layer 0 and the max over K
-       (kernel 3);
+       (ops/widthmlp.py:width_mlp_fused_rot);
     3. train mode (``self.training``: BatchNorm on batch statistics, which
-       kernel 3 cannot fold): gather, subtract the center, rotate into the
-       gripper frame, each scale's SharedMLP, max over K, as the JAX
+       the fused MLP cannot fold): gather, subtract the center, rotate into
+       the gripper frame, each scale's SharedMLP, max over K, as the JAX
        package's XLA path does.
+
+    ``impl='fused_pallas'`` (the JAX package's name for it): the query also
+    emits every neighbour's gripper-frame coordinates (no gradient flows
+    through them); in eval mode each scale's BN-folded MLP and the max over
+    K run on them (ops/widthmlp.py:width_mlp_fused), in train mode each
+    scale's SharedMLP and the max.
 
     Returns (B, Ns, D, n_scales * 256)."""
 
-    def __init__(self, *, nsample: int = 64, mlp: Sequence[int] = (64, 128, 256)):
+    IMPLS = ("auto", "fused_pallas")
+
+    def __init__(self, *, nsample: int = 64, mlp: Sequence[int] = (64, 128, 256), impl: str = "auto"):
         super().__init__()
+        if impl not in self.IMPLS:
+            raise ValueError(f"impl must be one of {self.IMPLS}, got {impl!r}")
+        self.impl = impl
         self.nsample = nsample
         self.radii = tuple(s * CYLINDER_RADIUS for s in SCALES)
         self.hmin = HMIN
@@ -90,14 +108,21 @@ class MultiScaleWidthGrouping(nn.Module):
     def folded_weights(self):
         """Per scale, every layer's (W_eff (I, O), b_eff) with BN folded in
         (eval only: the kernel has no backward)."""
-        return tuple(
-            tuple(block.bn.fold(block.dense.weight) for block in getattr(self, f"mlp_scale{ri}"))
-            for ri in range(len(self.radii))
-        )
+        return tuple(getattr(self, f"mlp_scale{ri}").fold() for ri in range(len(self.radii)))
 
     def forward(self, seed_xyz, cloud_xyz, vp_rot, *, plain: bool = False) -> torch.Tensor:
         cloud_xyz, seed_xyz, vp_rot = (t.contiguous() for t in (cloud_xyz, seed_xyz, vp_rot))
         query = multi_cylinder_group_plain if plain else multi_cylinder_group
+        if self.impl == "fused_pallas":
+            _, rel = query(
+                cloud_xyz.detach(), seed_xyz.detach(), vp_rot.detach(),
+                self.radii, self.hmin, self.hmax_list, self.nsample, emit_rel=True,
+            )  # (B, R, H, Ns, K, 3)
+            if self.training:
+                feats = [getattr(self, f"mlp_scale{ri}")(rel[:, ri]).amax(dim=3) for ri in range(rel.shape[1])]
+                return torch.cat(feats, dim=-1).permute(0, 2, 1, 3)  # (B, Ns, D, 4C)
+            mlp = width_mlp_fused_plain if plain else width_mlp_fused
+            return mlp(rel, self.folded_weights()).permute(0, 2, 1, 3)
         idx, _ = query(cloud_xyz, seed_xyz, vp_rot, self.radii, self.hmin, self.hmax_list, self.nsample)
         b, n_r, n_h, ns, k = idx.shape
         if self.training:

@@ -69,6 +69,19 @@ class BatchNorm(nn.Module):
         return dense_weight.t() * a, self.bias - self.running_mean * a
 
 
+def fused_eval_ok(module: nn.Module, x: torch.Tensor) -> bool:
+    """Gate of a grouping module's fused eval branch (the explicit form of
+    graspbalance_tpu/ops/pallas/mlpmax_kernel.py:fused_eval_ok): the module
+    has ``fused_min_nsample`` set and ``nsample >= fused_min_nsample``, it is
+    in eval mode, and ``x`` is float32."""
+    return (
+        module.fused_min_nsample is not None
+        and module.nsample >= module.fused_min_nsample
+        and not module.training
+        and x.dtype == torch.float32
+    )
+
+
 class MLPBlock(nn.Module):
     """Linear + BN + optional ReLU ('conv-norm-act' order). The linear layer
     has no bias: BN follows it, as in the reference."""
@@ -92,6 +105,11 @@ class MLPBlock(nn.Module):
         x = self.bn(x)
         return torch.relu(x) if self.act else x
 
+    @torch.no_grad()
+    def fold(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The block with its BN folded in (eval only): (W_eff (I, O), b_eff)."""
+        return self.bn.fold(self.dense.weight)
+
 
 class SharedMLP(nn.Sequential):
     """Stack of MLPBlocks over the trailing feature axis, named layer0, ..."""
@@ -101,3 +119,7 @@ class SharedMLP(nn.Sequential):
         for i, width in enumerate(layers):
             self.add_module(f"layer{i}", MLPBlock(in_features, width))
             in_features = width
+
+    def fold(self) -> tuple[tuple[torch.Tensor, torch.Tensor], ...]:
+        """Every block's (W_eff, b_eff) with its BN folded in (eval only)."""
+        return tuple(block.fold() for block in self)

@@ -1,5 +1,7 @@
 """Point-cloud primitives. On a CUDA tensor, FPS (and its masked mode), the
-multi-cylinder query, the fused width MLP, kNN and the collision counts
+multi-cylinder query, the fused width MLPs, kNN, the collision counts, the
+scatter-add, the fused group MLP + reduction (ops/mlpmax.py), the class-plane
+selection (ops/select.py) and the table-gather probe (ops/table_gather.py)
 launch hand-written kernels; on a CPU tensor they run their plain PyTorch
 versions. The other ops are PyTorch on any device."""
 

@@ -8,6 +8,11 @@ center with no hit keeps index 0 everywhere.
 Both queries build (centers, N) hit planes, so they run over chunks of
 centers: at (4, 1024, 20000) x 16 combos a dense mask with its int cumsum
 would be several GB.
+
+``multi_cylinder_query(impl="select")`` is the JAX package's
+``impl='pallas_select'``: every point's combo membership is compressed into
+one class plane (``class_plane``), and the selection kernel
+(ops/select.py) takes the first k hits of every combo from it.
 """
 
 from __future__ import annotations
@@ -79,6 +84,50 @@ def cylinder_thresholds(radii: Sequence[float], hmin: float, hmaxs: Sequence[flo
     return r2, float(torch.tensor(hmin, dtype=torch.float32)), hm
 
 
+NEVER_HIT = 63  # the class of a point that no combo takes (rc = hc = 7)
+
+
+def check_ascending(radii: Sequence[float], hmaxs: Sequence[float]) -> None:
+    """The class encoding holds at most 7 radii and 7 depths, and its decode
+    (rc <= ri and hc <= hi) equals the per-combo test only for ascending
+    thresholds."""
+    if len(radii) > 7 or len(hmaxs) > 7:
+        raise ValueError("class encoding supports at most 7 radii/hmaxs")
+    if list(radii) != sorted(radii) or list(hmaxs) != sorted(hmaxs):
+        raise ValueError(
+            "the class-plane query requires ascending radii and hmaxs "
+            f"(got radii={radii}, hmaxs={hmaxs}); sort them and remap the output combo axes"
+        )
+
+
+def class_plane(
+    xyz: torch.Tensor,
+    centers: torch.Tensor,
+    rot: torch.Tensor,
+    radii: Sequence[float],
+    hmin: float,
+    hmaxs: Sequence[float],
+    *,
+    chunk: int = 256,
+) -> torch.Tensor:
+    """(B, M, N) uint8: rc * 8 + hc for every (center, point), with
+    rc = #{radii r: y'^2 + z'^2 >= r^2} and hc = #{hmaxs h: x' >= h}, or
+    NEVER_HIT where x' <= hmin. The point hits combo (ri, hi) iff
+    rc <= ri and hc <= hi, every comparison against the same float32
+    thresholds as ``multi_cylinder_query``. Built over chunks of centers."""
+    check_ascending(radii, hmaxs)
+    r2, hmin32, hm = cylinder_thresholds(radii, hmin, hmaxs)
+    n_h = len(hmaxs)
+    planes = []
+    for lo in range(0, centers.shape[1], chunk):
+        xr, yr, zr = rot_planes(xyz, centers[:, lo : lo + chunk], rot[:, lo : lo + chunk])
+        d2 = yr * yr + zr * zr
+        rc = sum((d2 >= r2[ri * n_h]).to(torch.uint8) for ri in range(len(radii)))
+        hc = sum((xr >= hm[hi]).to(torch.uint8) for hi in range(n_h))
+        planes.append(torch.where(xr > hmin32, rc * 8 + hc, NEVER_HIT).to(torch.uint8))
+    return torch.cat(planes, dim=1)
+
+
 def multi_cylinder_query(
     xyz: torch.Tensor,
     centers: torch.Tensor,
@@ -89,12 +138,27 @@ def multi_cylinder_query(
     nsample: int,
     *,
     chunk: int = 256,
+    impl: str = "default",
 ) -> torch.Tensor:
     """All (radius, hmax) cylinder queries, the rotated coordinates computed
     once per chunk of centers. A point hits combo (r, h) iff
     y'^2 + z'^2 < r^2 and hmin < x' < hmax[h].
 
+    impl: 'default' (per-combo hit masks, plain PyTorch) | 'select' (the
+    class plane, then the selection kernel of ops/select.py, which runs its
+    plain version on CPU tensors); both give the same indices.
+
     Returns (B, len(radii), len(hmaxs), M, nsample) int32."""
+    if impl == "select":
+        # imported here: ops/select.py takes first_k_by_index from this module
+        from graspbalance_tpu_torch.ops.select import multicyl_select
+
+        b, m = centers.shape[:2]
+        cls = class_plane(xyz, centers, rot, radii, hmin, hmaxs, chunk=chunk)
+        out = multicyl_select(cls.reshape(b * m, -1), len(radii), len(hmaxs), nsample)
+        return out.reshape(b, m, len(radii), len(hmaxs), nsample).permute(0, 2, 3, 1, 4).contiguous()
+    if impl != "default":
+        raise ValueError(f"impl must be 'default' or 'select', got {impl!r}")
     r2, hmin32, hm = cylinder_thresholds(radii, hmin, hmaxs)
     n_r, n_h = len(radii), len(hmaxs)
     outs = []

@@ -1,14 +1,19 @@
-"""Fused width-grouping scale MLPs with the gripper rotation and the center
-subtraction folded into layer 0, then a max over K (port of
-graspbalance_tpu/ops/pallas/widthmlp_kernel.py:width_mlp_fused_rot).
+"""Fused width-grouping scale MLPs, then a max over K (port of
+graspbalance_tpu/ops/pallas/widthmlp_kernel.py), in two forms:
 
-``width_mlp_fused_rot`` launches the CUDA kernel (``csrc/widthmlp.cu``) on
-CUDA tensors and runs ``width_mlp_fused_rot_plain`` on CPU tensors.
+  ``width_mlp_fused_rot`` (width_mlp_fused_rot, the default eval path): raw
+  neighbour coordinates, seed-major, with the gripper rotation and the
+  center subtraction folded into layer 0 per seed:
+  ``((p - c) @ rot) @ W0 + b0 == p @ (rot @ W0) + (b0 - c @ (rot @ W0))``;
+  ``width_mlp_fused`` (width_mlp_fused, the head's ``impl='fused_pallas'``):
+  coordinates already in the gripper frame, scale-major, as the cylinder
+  query's ``emit_rel`` gives them.
+
+Each launches its entry point of the CUDA kernel (``csrc/widthmlp.cu``) on
+CUDA tensors and runs its ``*_plain`` version on CPU tensors.
 
 ``weights`` is one tuple per scale of ``((W0, b0), (W1, b1), (W2, b2))``
 with ``W`` laid out (in, out) and BatchNorm already folded in (eval only).
-Layer 0 absorbs the rotation and the center per seed:
-``((p - c) @ rot) @ W0 + b0 == p @ (rot @ W0) + (b0 - c @ (rot @ W0))``.
 """
 
 from __future__ import annotations
@@ -31,6 +36,28 @@ def fold_layer0(centers: torch.Tensor, rot: torch.Tensor, weights) -> tuple[torc
     w0_eff = (rot.float().unsqueeze(-1) * w0_cat).sum(dim=-2)  # (B, S, 3, R*C1)
     b0_eff = b0_cat - (centers.float().unsqueeze(-1) * w0_eff).sum(dim=-2)
     return w0_eff.contiguous(), b0_eff.contiguous()
+
+
+def _check_kernel_widths(k: int, weights) -> None:
+    widths = tuple(layer[0].shape[1] for layer in weights[0])
+    if k != KERNEL_K or widths != KERNEL_WIDTHS or any(len(w) != 3 for w in weights):
+        raise ValueError(
+            f"the width-MLP kernel takes K={KERNEL_K} and widths {KERNEL_WIDTHS}, "
+            f"got K={k} and widths {widths}"
+        )
+
+
+def _stacked_tail(weights, device):
+    """Layers 1 and 2 of every scale, stacked: (w1, b1, w2, b2), each
+    contiguous float32 on ``device``."""
+    out = tuple(
+        torch.stack([w[li][part] for w in weights]).float().contiguous()
+        for li in (1, 2) for part in (0, 1)
+    )
+    for t in out:
+        if t.device != device:
+            raise ValueError(f"weights are on {t.device}, the inputs on {device}")
+    return out
 
 
 def _check(grouped, centers, rot, weights):
@@ -86,20 +113,11 @@ def width_mlp_fused_rot(grouped: torch.Tensor, centers: torch.Tensor, rot: torch
         return width_mlp_fused_rot_plain(grouped, centers, rot, weights)
     _build.require_cuda("grouped", grouped, torch.float32, 6)
     b, s, r, h, k, _ = grouped.shape
-    widths = tuple(layer[0].shape[1] for layer in weights[0])
-    if k != KERNEL_K or widths != KERNEL_WIDTHS or any(len(w) != 3 for w in weights):
-        raise ValueError(
-            f"the width-MLP kernel takes K={KERNEL_K} and widths {KERNEL_WIDTHS}, "
-            f"got K={k} and widths {widths}"
-        )
+    _check_kernel_widths(k, weights)
     w0_eff, b0_eff = fold_layer0(centers, rot, weights)
-    w1 = torch.stack([w[1][0] for w in weights]).float().contiguous()  # (R, C1, C2)
-    b1 = torch.stack([w[1][1] for w in weights]).float().contiguous()
-    w2 = torch.stack([w[2][0] for w in weights]).float().contiguous()  # (R, C2, C3)
-    b2 = torch.stack([w[2][1] for w in weights]).float().contiguous()
-    for name, t in (("w0_eff", w0_eff), ("w1", w1), ("w2", w2)):
-        if t.device != grouped.device:
-            raise ValueError(f"{name} is on {t.device}, grouped on {grouped.device}")
+    if w0_eff.device != grouped.device:
+        raise ValueError(f"w0_eff is on {w0_eff.device}, grouped on {grouped.device}")
+    w1, b1, w2, b2 = _stacked_tail(weights, grouped.device)  # (R, C1, C2), (R, C2), ...
     out = torch.empty((b, s, h, r * KERNEL_WIDTHS[-1]), dtype=torch.float32, device=grouped.device)
     lib = _build.library()
     with torch.cuda.device(grouped.device):
@@ -109,4 +127,54 @@ def width_mlp_fused_rot(grouped: torch.Tensor, centers: torch.Tensor, rot: torch
             b, s, r, h, _build.stream_of(grouped),
         )
     _build.check(err, "widthmlp")
+    return out
+
+
+def _check_rel(rel, weights):
+    if rel.ndim != 6 or rel.shape[-1] != 3:
+        raise ValueError(f"rel must be (B, R, H, S, K, 3), got {tuple(rel.shape)}")
+    if len(weights) != rel.shape[1]:
+        raise ValueError(f"need one weight list per scale ({rel.shape[1]}), got {len(weights)}")
+
+
+def width_mlp_fused_plain(rel: torch.Tensor, weights, *, seed_chunk: int = 128) -> torch.Tensor:
+    """Plain PyTorch version: rel (B, R, H, S, K, 3) gripper-frame neighbour
+    coordinates -> (B, H, S, R*C_last). Runs over chunks of seeds so that
+    the last layer's (rows, C_last) activations stay bounded."""
+    _check_rel(rel, weights)
+    outs = []
+    for lo in range(0, rel.shape[3], seed_chunk):
+        per_scale = []
+        for ri, layers in enumerate(weights):
+            x = rel[:, ri, :, lo : lo + seed_chunk].float()  # (B, H, s, K, 3)
+            for w, bias in layers:
+                x = torch.relu(x @ w.float() + bias.float())
+            per_scale.append(x.amax(dim=3))  # (B, H, s, C_last)
+        outs.append(torch.cat(per_scale, dim=-1))
+    return torch.cat(outs, dim=2)
+
+
+def width_mlp_fused(rel: torch.Tensor, weights) -> torch.Tensor:
+    """Fused width MLPs on gripper-frame coordinates: rel (B, R, H, S, K, 3)
+    -> (B, H, S, R*C_last) float32."""
+    _check_rel(rel, weights)
+    if rel.device.type == "cpu":
+        return width_mlp_fused_plain(rel, weights)
+    _build.require_cuda("rel", rel, torch.float32, 6)
+    b, r, h, s, k, _ = rel.shape
+    _check_kernel_widths(k, weights)
+    w0 = torch.stack([w[0][0] for w in weights]).float().contiguous()  # (R, 3, C1)
+    b0 = torch.stack([w[0][1] for w in weights]).float().contiguous()
+    w1, b1, w2, b2 = _stacked_tail(weights, rel.device)
+    if w0.device != rel.device:
+        raise ValueError(f"w0 is on {w0.device}, rel on {rel.device}")
+    out = torch.empty((b, h, s, r * KERNEL_WIDTHS[-1]), dtype=torch.float32, device=rel.device)
+    lib = _build.library()
+    with torch.cuda.device(rel.device):
+        err = lib.gb_widthmlp_rel(
+            rel.data_ptr(), w0.data_ptr(), b0.data_ptr(),
+            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+            b, s, r, h, _build.stream_of(rel),
+        )
+    _build.check(err, "widthmlp_rel")
     return out

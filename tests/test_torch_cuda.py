@@ -5,7 +5,12 @@ no cylinder hit, fewer than K hits, duplicate kNN references, masked-FPS
 rows with no valid point, ragged grasp and point counts for the collision
 counts, and for the scatter-add (the gather backward) duplicate and dropped
 rows, destination counts and channel counts off the block's tile, fewer rows
-than one round of the kernel. Marked ``cuda``: they skip
+than one round of the kernel; for the fused group MLP + reduction every K
+it takes, point counts off the tile and every reduction; for the width MLP
+on gripper-frame coordinates an odd seed count; for the class-plane
+selection rows with no hit and with fewer hits than k, and row lengths off
+the warp's 32; for the table gather non-square tables on both axes; and two
+launches of each bit-equal. Marked ``cuda``: they skip
 where torch has no CUDA device, and run on the card with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -16,7 +21,10 @@ machine does not have; this file needs none of it.)
 Tolerances: FPS, masked FPS, query and kNN indices, rotated coordinates,
 kNN distances and collision counts exactly (both sides round the same
 operations in the same order); the width MLP within 1e-5 (f32 FMA against
-the plain matmuls' summation order); the scatter-add exactly on
+the plain matmuls' summation order), as the width MLP on gripper-frame
+coordinates and the fused group MLP + reduction (1e-5 absolute and
+relative); the class-plane selection and the table gather exactly; the
+scatter-add exactly on
 integer-valued cotangents, bit-equal between two launches, and on float
 cotangents within 1e-5 of the float64 sums (the plain index_add_ adds in
 atomic order).
@@ -38,9 +46,18 @@ from graspbalance_tpu_torch.ops.fps import (
     furthest_point_sample_plain,
 )
 from graspbalance_tpu_torch.ops.knn import knn, knn_plain
+from graspbalance_tpu_torch.ops.mlpmax import mlp_max_fused, mlp_max_fused_plain
 from graspbalance_tpu_torch.ops.multicyl import multi_cylinder_group, multi_cylinder_group_plain
+from graspbalance_tpu_torch.ops.query import class_plane
 from graspbalance_tpu_torch.ops.scatter import scatter_add, scatter_add_plain
-from graspbalance_tpu_torch.ops.widthmlp import width_mlp_fused_rot, width_mlp_fused_rot_plain
+from graspbalance_tpu_torch.ops.select import multicyl_select, multicyl_select_plain
+from graspbalance_tpu_torch.ops.table_gather import table_gather, table_gather_plain
+from graspbalance_tpu_torch.ops.widthmlp import (
+    width_mlp_fused,
+    width_mlp_fused_plain,
+    width_mlp_fused_rot,
+    width_mlp_fused_rot_plain,
+)
 from graspbalance_tpu_torch.weights import init_random_
 
 pytestmark = pytest.mark.cuda
@@ -280,3 +297,95 @@ def test_gather_backward_is_the_kernel(dev, rng, op):
         assert _build.launches["scatter"] == before + launched
         grads.append(p.grad)
     torch.testing.assert_close(grads[0], grads[1], atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("reduction", ["max", "mean", "sum"])
+@pytest.mark.parametrize(
+    "k,n,c_parts,widths",
+    [
+        (64, 2048, (3,), (64, 64, 128)),  # sa1
+        (64, 77, (3, 128), (128,)),  # block1_*, points off the tile
+        (32, 1023, (3, 128), (128, 128, 256)),  # sa2
+        (16, 513, (3, 256), (256,)),  # block3_*
+        (8, 5, (7, 32), (32, 96)),
+    ],
+)
+def test_mlpmax_kernel_shapes(dev, rng, reduction, k, n, c_parts, widths):
+    parts = [torch.from_numpy(rng.standard_normal((2, n, k, c)).astype(np.float32)).to(dev) for c in c_parts]
+    cin = (sum(c_parts),) + widths[:-1]
+    ws = [torch.from_numpy((rng.standard_normal((i, o)) / np.sqrt(i)).astype(np.float32)).to(dev)
+          for i, o in zip(cin, widths)]
+    bs = [torch.from_numpy((rng.standard_normal(o) * 0.1).astype(np.float32)).to(dev) for o in widths]
+    w0_parts = tuple(ws[0].split(list(c_parts), dim=0))
+    weights = ((w0_parts, bs[0]), *zip(ws[1:], bs[1:]))
+    before = _build.launches["mlpmax"]
+    got = mlp_max_fused(parts, weights, reduction=reduction)
+    assert _build.launches["mlpmax"] == before + 1
+    want = mlp_max_fused_plain(parts, weights, reduction=reduction)
+    assert got.shape == (2, n, widths[-1])
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    assert torch.equal(got, mlp_max_fused(parts, weights, reduction=reduction))
+
+
+def test_mlpmax_kernel_refuses_what_it_cannot_take(dev):
+    parts = (torch.zeros((1, 4, 24, 3), device=dev),)
+    weights = (((torch.zeros((3, 32), device=dev),), torch.zeros(32, device=dev)),)
+    with pytest.raises(ValueError, match="K in"):
+        mlp_max_fused(parts, weights)
+    parts = (torch.zeros((1, 4, 16, 3), device=dev),)
+    with pytest.raises(ValueError, match="multiples of 32"):
+        mlp_max_fused(parts, (((torch.zeros((3, 40), device=dev),), torch.zeros(40, device=dev)),))
+
+
+@pytest.mark.parametrize("s", [1, 37])
+def test_widthmlp_rel_kernel_matches_plain(dev, rng, s):
+    head = init_random_(MultiScaleWidthGrouping(), seed=5).to(dev)
+    rel = torch.from_numpy((rng.standard_normal((2, 4, 4, s, 64, 3)) * 0.05).astype(np.float32)).to(dev)
+    weights = head.folded_weights()
+    before = (_build.launches["widthmlp_rel"], _build.launches["widthmlp"])
+    got = width_mlp_fused(rel, weights)
+    assert (_build.launches["widthmlp_rel"], _build.launches["widthmlp"]) == (before[0] + 1, before[1])
+    assert got.shape == (2, 4, s, 1024)
+    torch.testing.assert_close(got, width_mlp_fused_plain(rel, weights), atol=1e-5, rtol=1e-5)
+    assert torch.equal(got, width_mlp_fused(rel, weights))
+
+
+@pytest.mark.parametrize("n,k", [(1, 4), (31, 16), (3001, 64), (20000, 64), (500, 100)])
+def test_select_kernel_edge_cases(dev, rng, n, k):
+    rows = 21
+    cls = rng.integers(0, 5, (rows, n)) * 8 + rng.integers(0, 5, (rows, n))
+    cls[rng.random((rows, n)) < 0.5] = 63
+    cls[0] = 63  # no hit in any combo
+    cls[1, : max(n - 3, 0)] = 63  # fewer hits than k
+    cls = torch.from_numpy(cls.astype(np.uint8)).to(dev)
+    before = _build.launches["select"]
+    got = multicyl_select(cls, 4, 4, k)
+    assert _build.launches["select"] == before + 1
+    torch.testing.assert_close(got, multicyl_select_plain(cls, 4, 4, k), atol=0, rtol=0)
+    assert bool((got[0] == 0).all())
+    assert torch.equal(got, multicyl_select(cls, 4, 4, k))
+
+
+def test_select_kernel_matches_the_cylinder_query(dev, rng):
+    b, n, m = 2, 3001, 77
+    cloud = (rng.random((b, n, 3)) - 0.5).astype(np.float32) * 0.4
+    centers = np.take_along_axis(cloud, rng.integers(0, n, size=(b, m))[..., None], axis=1)
+    centers[:, -5:] = 50.0
+    args = [torch.from_numpy(a).to(dev) for a in (cloud, centers, _rotations(rng, (b, m)))]
+    idx, _ = multi_cylinder_group(*args, RADII, HMIN, HMAXS, 64)
+    cls = class_plane(*args, RADII, HMIN, HMAXS).reshape(b * m, n)
+    got = multicyl_select(cls, 4, 4, 64).reshape(b, m, 4, 4, 64).permute(0, 2, 3, 1, 4)
+    torch.testing.assert_close(got, idx, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dim", [0, 1])
+@pytest.mark.parametrize("m,n", [(1, 1), (19968, 128), (300, 77), (33, 4000)])
+def test_table_gather_kernel_shapes(dev, rng, dim, m, n):
+    x = torch.from_numpy(rng.random((m, n)).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, (m, n)[dim], (m, n)).astype(np.int32)).to(dev)
+    before = _build.launches["table_gather"]
+    got = table_gather(x, idx, dim)
+    assert _build.launches["table_gather"] == before + 1
+    torch.testing.assert_close(got, table_gather_plain(x, idx, dim), atol=0, rtol=0)
+    torch.testing.assert_close(got, torch.gather(x, dim, idx.long()), atol=0, rtol=0)
+    assert torch.equal(got, table_gather(x, idx, dim))

@@ -46,6 +46,8 @@ def test_port_imports_no_jax():
     assert "graspbalance_tpu_torch.eval.pipeline" in names and "graspbalance_tpu_torch.models.dsn" in names
     assert "graspbalance_tpu_torch.train.train_step" in names and "graspbalance_tpu_torch.ops.scatter" in names
     assert "graspbalance_tpu_torch.labels.losses" in names and "graspbalance_tpu_torch.labels.label_gen" in names
+    assert {"graspbalance_tpu_torch.ops.mlpmax", "graspbalance_tpu_torch.ops.select",
+            "graspbalance_tpu_torch.ops.table_gather"} <= set(names)
     code = (
         "import importlib, json, sys\n"
         f"for name in {names!r}:\n"
