@@ -47,7 +47,8 @@ the table-gather probe. Phases, each fatal on failure:
      its plain version at every gather shape of the step, captured from the
      step itself (integer cotangents exactly, float ones within the
      worst-case bound of f32 recursive summation of the float64 sums, two
-     launches bit-equal), timed beside its plain version and index_add_;
+     launches bit-equal), timed per shape beside its plain version and
+     index_add_, with its device time split by pass (torch.profiler);
      one step through the kernels and one through the plain versions (FPS,
      the cylinder query and, swapped in for the kernel's wrapper, the
      scatter-add) from the same state (fps, multicyl and scatter launched,
@@ -75,8 +76,9 @@ the table-gather probe. Phases, each fatal on failure:
      rounds (clouds/s and p50 ms/scene of each), then a torch.profiler pass
      (as phase 8's) over 3 calls of each and of the two layers they differ
      in, the backbone after FPS and the width head;
- 14. the table gather on the probe's four cases (exact against its plain
-     version and torch.gather), timed beside both.
+ 14. the table gather on the probe's four cases and on dim 0 (65,536, 128)
+     (exact against its plain version and torch.gather), timed beside both
+     (CUDA events, and device time per launch from torch.profiler).
 
 Prints the kernel table as one JSON line, a row per TPU kernel (K2 and K3 are
 covered by K1's kernel): its launches on the path named in its "path" (the
@@ -85,7 +87,8 @@ for the mlp-max and the width MLP on rotated coordinates; the op-level
 select query; the probe phase for the table gather), its error against the
 plain version, its time, the plain version's, the card's least time for the
 work and, where one PyTorch call computes the same function, that call's
-time; and as the last line {"ok": true, "device": {...}}. Without CUDA it
+time; the two redesigned rows are marked "redesigned" (their earlier times
+are printed in phases 9 and 14); and as the last line {"ok": true, "device": {...}}. Without CUDA it
 exits non-zero before any result. Imports nothing of JAX.
 """
 
@@ -126,6 +129,13 @@ FUSED_MLPMAX_LAUNCHES = 19  # 4 set abstractions + 15 local aggregations per for
 FUSED_ROUNDS = 4  # alternating rounds of the default and the fused forward + decode
 FUSED_ITERS = 5  # timed calls of each configuration per round
 PROBE_REPS = 20  # timed launches of the table gather and its yardsticks
+# the two redesigned kernels, and their times before the redesign (commit
+# 5218b90; NVIDIA H100 80GB HBM3, 700.00 W, this script), printed beside the
+# new ones in phases 9 and 14: the scatter-add summed over one training
+# step's calls, the table gather at dim 0 (19,968, 128)
+REDESIGNED = ("scatter", "table_gather")
+SCATTER_BEFORE_MS = 4.149
+TABLE_GATHER_BEFORE_MS = 0.1005
 # the kernels each path must launch
 PATH_KERNELS = {
     "main": ("fps", "multicyl", "widthmlp"),
@@ -257,33 +267,41 @@ def compare_decoded(ep, ep_p, grasps, grasps_p, valid, valid_p, what: str) -> st
             f"{d_ang:.3g}, score {d_score:.3g})")
 
 
-def profile_calls(fns: dict, calls: int = 3) -> None:
-    """torch.profiler over `calls` calls of each fn in `fns` (name -> fn):
-    kernels and device (kernel) ms per call, beside the unprofiled wall ms
-    per call, one JSON line each."""
+def device_ms_by_kernel(fn, calls: int = 1) -> dict:
+    """torch.profiler over `calls` calls of ``fn``, after one unprofiled
+    call: kernel name -> (device ms, launches) per call. Device
+    events only, without the ranges that annotate them (the optimizer
+    step's, whose kernels are counted on their own)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.self_device_time_total / 1e3 / calls, e.count / calls) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation}
+
+
+def profile_calls(fns: dict, calls: int = 3) -> None:
+    """torch.profiler over `calls` calls of each fn in `fns` (name -> fn):
+    kernels and device (kernel) ms per call, beside the unprofiled wall ms
+    per call, one JSON line each."""
     for name, fn in fns.items():
-        fn()
+        kernels = device_ms_by_kernel(fn, calls)
         wall = wall_ms(fn, calls)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        # device events, without the ranges that annotate them (the optimizer
-        # step's, whose kernels are counted on their own)
-        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-        dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / calls
-        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+        dev_ms = sum(ms for ms, _ in kernels.values())
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
         print(json.dumps({
             "profile": name,
-            "kernels_per_call": sum(e.count for e in kernels) / calls,
+            "kernels_per_call": sum(count for _, count in kernels.values()),
             "device_ms_per_call": dev_ms,
             "wall_ms_per_call": wall,
             "busy_share": dev_ms / wall,
-            "top": [[e.key[:70], e.self_device_time_total / 1e3 / calls, e.count // calls] for e in top],
+            "top": [[key[:70], ms, int(count)] for key, (ms, count) in top],
         }))
 
 
@@ -379,16 +397,17 @@ def scatter_phase(calls) -> tuple[tuple, float, tuple]:
     """The scatter-add kernel against its plain version on each captured
     call: integer-valued cotangents exactly, two launches bit-equal, float
     cotangents within the worst-case error bound of recursive f32 summation,
-    (rows - 1) * 2^-24 * sum |ct| per output, of the float64 sums. Returns
-    (kernel, plain, index_add_ ms summed over the calls; the largest float
-    error; the bound (ms, by) of all the calls' bytes)."""
+    (rows - 1) * 2^-24 * sum |ct| per output, of the float64 sums. Prints,
+    per shape, the kernel's, index_add_'s and the plain version's ms, and
+    the kernel's device ms per pass (torch.profiler) over the step's calls.
+    Returns (kernel, plain, index_add_ ms summed over the calls; the largest
+    float error; the bound (ms, by) of all the calls' bytes)."""
     import torch
 
     from graspbalance_tpu_torch.ops.scatter import scatter_add, scatter_add_plain
 
     max_err, nbytes = 0.0, 0.0
-    times = [0.0, 0.0, 0.0]
-    shapes = {}
+    shapes = {}  # (B, R, n, C) -> [calls, kernel ms, index_add_ ms, plain ms], summed over its calls
     for ct, idx, n in calls:
         b, r, c = ct.shape
         ct_int = torch.randint(-8, 9, ct.shape, generator=torch.Generator(device=ct.device).manual_seed(r),
@@ -406,18 +425,27 @@ def scatter_phase(calls) -> tuple[tuple, float, tuple]:
         max_err = max(max_err, float(err.max()))
         flat_rows = (idx.long() + torch.arange(b, device=idx.device).unsqueeze(1) * n).reshape(-1)
         flat_ct = ct.reshape(-1, c)
-        times[0] += cuda_ms(lambda: scatter_add(ct, idx, n), 5)
-        times[1] += cuda_ms(lambda: scatter_add_plain(ct, idx, n), 5)
-        times[2] += cuda_ms(lambda: torch.zeros((b * n, c), device=ct.device).index_add_(0, flat_rows, flat_ct), 5)
+        entry = shapes.setdefault((b, r, n, c), [0, 0.0, 0.0, 0.0])
+        entry[0] += 1
+        entry[1] += cuda_ms(lambda: scatter_add(ct, idx, n), 5)
+        entry[2] += cuda_ms(lambda: torch.zeros((b * n, c), device=ct.device).index_add_(0, flat_rows, flat_ct), 5)
+        entry[3] += cuda_ms(lambda: scatter_add_plain(ct, idx, n), 5)
         nbytes += ct.numel() * 4 + idx.numel() * 4 + b * n * c * 4
-        key = (b, r, n, c)
-        shapes[key] = shapes.get(key, 0) + 1
-    print("scatter-add at the step's gather shapes (B, R, n, C) x calls: "
-          + ", ".join(f"{k} x{v}" for k, v in shapes.items())
-          + f"; integer cotangents exact, two launches bit-equal, float max err {max_err:.3g} "
-          f"(within the f32 summation bound everywhere)")
+    times = tuple(sum(e[i] for e in shapes.values()) for i in (1, 3, 2))
+    print("scatter-add at the step's gather shapes, integer cotangents exact, two launches bit-equal, float max "
+          f"err {max_err:.3g} (within the f32 summation bound everywhere); per shape (B, R, n, C) x calls: kernel, "
+          "index_add_, plain ms summed over its calls: "
+          + "; ".join(f"{k} x{e[0]}: {e[1]:.4f}, {e[2]:.4f}, {e[3]:.4f}" for k, e in shapes.items()))
+    # the kernel's passes, device time over one launch per captured call
+    by_kernel = device_ms_by_kernel(lambda: [scatter_add(ct, idx, n) for ct, idx, n in calls])
+    passes = {name: sum(ms for key, (ms, _) in by_kernel.items() if f"{name}_kernel" in key)
+              for name in ("hist", "scan", "rank", "sum")}
+    print(f"scatter-add per step ({len(calls)} calls): kernel {times[0]:.4f} ms (before the redesign: "
+          f"{SCATTER_BEFORE_MS} ms), index_add_ {times[2]:.4f} ms, plain {times[1]:.4f} ms (CUDA events); the kernel's "
+          f"device ms by pass (torch.profiler): " + ", ".join(f"{k} {v:.4f}" for k, v in passes.items())
+          + f", total {sum(passes.values()):.4f}")
     # one add per (row, channel): the bytes bind
-    return tuple(times), max_err, bound(nbytes, sum(ct.numel() for ct, _, _ in calls))
+    return times, max_err, bound(nbytes, sum(ct.numel() for ct, _, _ in calls))
 
 
 def capture_mlpmax(fn) -> list:
@@ -627,10 +655,10 @@ def fused_phase(model, dsn, cloud, smi: str):
 
 
 def probe_phase():
-    """Phase 14: the table gather on the probe's four cases (its launches
-    counted), exactly against its plain version and torch.gather, then
-    timed beside both at the probe's benchmark case. Returns (launches,
-    times, max error, bound)."""
+    """Phase 14: the table gather on the probe's four cases and on one past
+    the old design's limit (its launches counted), exactly against its plain
+    version and torch.gather, then timed beside both at the probe's
+    benchmark case. Returns (launches, times, max error, bound)."""
     import numpy as np
     import torch
 
@@ -642,7 +670,8 @@ def probe_phase():
         idx = np.random.RandomState(seed + 1).randint(0, m if dim == 0 else n, (m, n)).astype(np.int32)
         return torch.from_numpy(x).cuda(), torch.from_numpy(idx).cuda(), dim
 
-    cases = [case(0, 512, 128, 0), case(0, 19968, 128, 10), case(1, 512, 128, 20), case(0, 2048, 512, 30)]
+    cases = [case(0, 512, 128, 0), case(0, 19968, 128, 10), case(1, 512, 128, 20), case(0, 2048, 512, 30),
+             case(0, 65536, 128, 40)]  # the last past the old design's shared-memory limit on M
     torch.cuda.synchronize()
     _build.reset_launches()
     outs = [table_gather(*c) for c in cases]
@@ -658,9 +687,12 @@ def probe_phase():
     times = (cuda_ms(lambda: table_gather(x, idx, dim), PROBE_REPS),
              cuda_ms(lambda: table_gather_plain(x, idx, dim), PROBE_REPS),
              cuda_ms(lambda: torch.gather(x, dim, idx_l), PROBE_REPS))
-    print(f"table gather: dim 0 (512, 128), dim 0 (19968, 128), dim 1 (512, 128), dim 0 (2048, 512) exact "
-          f"against the plain version and torch.gather; at dim 0 (19968, 128): {times[0]:.4f} ms "
-          f"(plain {times[1]:.4f}, torch.gather {times[2]:.4f})")
+    dev_k = sum(ms for ms, _ in device_ms_by_kernel(lambda: table_gather(x, idx, dim), PROBE_REPS).values())
+    dev_g = sum(ms for ms, _ in device_ms_by_kernel(lambda: torch.gather(x, dim, idx_l), PROBE_REPS).values())
+    print(f"table gather: dim 0 (512, 128), dim 0 (19968, 128), dim 1 (512, 128), dim 0 (2048, 512), dim 0 "
+          f"(65536, 128) exact against the plain version and torch.gather; at dim 0 (19968, 128): {times[0]:.4f} ms "
+          f"(before the redesign: {TABLE_GATHER_BEFORE_MS} ms; plain {times[1]:.4f}, torch.gather {times[2]:.4f}; CUDA "
+          f"events), device ms per launch (torch.profiler) {dev_k:.4f} against torch.gather's {dev_g:.4f}")
     # an index in, a table value in once, a value out: 12 bytes per element
     return launches, times, 0, bound(12.0 * x.numel(), 0.0)
 
@@ -1068,6 +1100,7 @@ def main() -> int:
             "bound_ms": bounds[measured][0],
             "bound_by": bounds[measured][1],
             "library_ms": times[measured][2],
+            **({"redesigned": True} if name in REDESIGNED else {}),
         }
         for k_num, name, measured, source, replaces, path in KERNEL_TABLE
     ]

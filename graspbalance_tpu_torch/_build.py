@@ -46,11 +46,11 @@ _SIGNATURES = {
     "gb_knn": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "gb_fps_masked": (_P, _P, _P, _P, _I, _I, _I, _P),
     "gb_collision": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "gb_scatter_add": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "gb_scatter_add": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "gb_mlpmax": (_P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _I, _I, _I, _P),
     "gb_widthmlp_rel": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "gb_select": (_P, _P, _I, _I, _I, _I, _I, _P),
-    "gb_table_gather": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "gb_table_gather": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 
@@ -101,6 +101,8 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    lib.gb_scatter_add_scratch.argtypes = (_I,) * 4
+    lib.gb_scatter_add_scratch.restype = ctypes.c_longlong
     lib.gb_error_string.argtypes = (ctypes.c_int,)
     lib.gb_error_string.restype = ctypes.c_char_p
     return lib

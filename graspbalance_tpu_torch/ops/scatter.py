@@ -9,22 +9,35 @@ on CUDA tensors and runs ``scatter_add_plain`` on CPU tensors. Both return
   idx[b, r] == d; rows whose index lies outside [0, n) are dropped
   (negative = padding).
 
-The kernel adds each destination's rows in increasing row order, so it is
-deterministic: two launches on the same inputs give bit-equal outputs.
+The kernel sorts the rows by destination (a stable counting sort over tiles
+of rows: histogram, scan, rank) and adds each destination's rows in
+increasing row order, in chunks of at most 64 rows whose partial sums it
+adds in chunk order, so it is deterministic: two launches on the same inputs give
+bit-equal outputs. All its scratch is one allocation.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from graspbalance_tpu_torch import _build
-
 
 def _check(ct: torch.Tensor, idx: torch.Tensor, n: int) -> None:
     if ct.ndim != 3 or idx.shape != ct.shape[:2]:
         raise ValueError(f"need ct (B, R, C) and idx (B, R); got {tuple(ct.shape)}, {tuple(idx.shape)}")
     if n < 0:
         raise ValueError(f"n must be >= 0, got {n}")
+
+
+@functools.lru_cache(maxsize=256)
+def _scratch_bytes(b: int, r: int, n: int, c: int) -> int:
+    """The kernel's scratch bytes for these sizes."""
+    nbytes = _build.library().gb_scatter_add_scratch(b, r, n, c)
+    if nbytes <= 0:
+        raise ValueError(f"scatter kernel refuses (B, R, n, C) = {(b, r, n, c)}")
+    return nbytes
 
 
 def scatter_add_plain(ct: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -52,16 +65,11 @@ def scatter_add(ct: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     out = torch.empty((b, n, c), dtype=torch.float32, device=ct.device)
     if out.numel() == 0:
         return out
-    # scratch of the counting sort: rows per destination, segment starts,
-    # row ids in segment order
-    counts = torch.empty((b, n), dtype=torch.int32, device=ct.device)
-    offsets = torch.empty((b, n + 1), dtype=torch.int32, device=ct.device)
-    rows = torch.empty((b, max(r, 1)), dtype=torch.int32, device=ct.device)
+    scratch = torch.empty(_scratch_bytes(b, r, n, c), dtype=torch.uint8, device=ct.device)
     lib = _build.library()
     with torch.cuda.device(ct.device):
         err = lib.gb_scatter_add(
-            ct.data_ptr(), idx.data_ptr(), out.data_ptr(), counts.data_ptr(), offsets.data_ptr(),
-            rows.data_ptr(), b, r, n, c, _build.stream_of(ct),
+            ct.data_ptr(), idx.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, r, n, c, _build.stream_of(ct)
         )
     _build.check(err, "scatter")
     return out

@@ -1,6 +1,6 @@
-"""Same-shape gather from a table held in shared memory: the table-gather
-probe (port of tools/probe_mosaic_gather.py, whose Pallas kernel is a
-same-shape ``take_along_axis`` from a VMEM-resident table).
+"""Same-shape gather from a table: the table-gather probe (port of
+tools/probe_mosaic_gather.py, whose Pallas kernel is a same-shape
+``take_along_axis`` from a VMEM-resident table).
 
 ``table_gather(x, idx, dim)`` launches the CUDA kernel
 (``csrc/table_gather.cu``) on CUDA tensors and runs ``table_gather_plain``
@@ -9,8 +9,11 @@ on CPU tensors. For x (M, N) float32 and idx (M, N) int32 in range:
   dim 0: out[i, j] = x[idx[i, j], j]
   dim 1: out[i, j] = x[i, idx[i, j]]
 
-No path of the model calls it: ``chip_smoke.py`` drives it on the probe's
-own cases, beside ``torch.gather`` as the library yardstick.
+The kernel reads a dim-0 table straight from global memory, so M is free
+(M * N < 2^31), and stages a dim-1 row in shared memory, so N <= 58,112
+there. No path of the
+model calls it: ``chip_smoke.py`` drives it on the probe's own cases,
+beside ``torch.gather`` as the library yardstick.
 """
 
 from __future__ import annotations
@@ -20,8 +23,6 @@ import torch
 from graspbalance_tpu_torch import _build
 
 SMEM_BYTES = 232448  # shared memory one block may use on the H100 (227 KB)
-SLAB_COLUMNS = 32  # dim 0: at most this many table columns per block
-TARGET_BLOCKS = 264  # dim 0: split the rows until about two blocks per SM
 
 
 def _check(x: torch.Tensor, idx: torch.Tensor, dim: int) -> None:
@@ -49,22 +50,15 @@ def table_gather(x: torch.Tensor, idx: torch.Tensor, dim: int) -> torch.Tensor:
     _build.require_cuda("x", x, torch.float32, 2)
     _build.require_cuda("idx", idx, torch.int32, 2)
     m, n = x.shape
+    if m * n >= 2**31:
+        raise ValueError(f"the kernel indexes M * N < 2^31 elements, got {(m, n)}")
+    if dim == 1 and 4 * n > SMEM_BYTES:
+        raise ValueError(f"dim 1 stages a whole table row in shared memory: N={n} is too long")
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
-    cw = splits = 1
-    if dim == 0:  # as many columns of the whole table as shared memory holds
-        cw = min(SLAB_COLUMNS, n, SMEM_BYTES // (4 * m))
-        if cw < 1:
-            raise ValueError(f"dim 0 stages a whole table column in shared memory: M={m} is too long")
-        slabs = -(-n // cw)
-        splits = max(1, min(m, -(-TARGET_BLOCKS // slabs)))
-    elif 4 * n > SMEM_BYTES:
-        raise ValueError(f"dim 1 stages a whole table row in shared memory: N={n} is too long")
     lib = _build.library()
     with torch.cuda.device(x.device):
-        err = lib.gb_table_gather(
-            x.data_ptr(), idx.data_ptr(), out.data_ptr(), m, n, dim, cw, splits, _build.stream_of(x)
-        )
+        err = lib.gb_table_gather(x.data_ptr(), idx.data_ptr(), out.data_ptr(), m, n, dim, _build.stream_of(x))
     _build.check(err, "table_gather")
     return out

@@ -5,11 +5,16 @@ no cylinder hit, fewer than K hits, duplicate kNN references, masked-FPS
 rows with no valid point, ragged grasp and point counts for the collision
 counts, and for the scatter-add (the gather backward) duplicate and dropped
 rows, destination counts and channel counts off the block's tile, fewer rows
-than one round of the kernel; for the fused group MLP + reduction every K
+than one sort tile, the training step's gather shapes, more destinations
+than one histogram block holds, hot destinations at and across the sum
+chunk's length, and unaligned rows; for the fused group MLP + reduction every K
 it takes, point counts off the tile and every reduction; for the width MLP
 on gripper-frame coordinates an odd seed count; for the class-plane
 selection rows with no hit and with fewer hits than k, and row lengths off
-the warp's 32; for the table gather non-square tables on both axes; and two
+the warp's 32; for the table gather non-square tables on both axes, tables past
+the old design's shared-memory limit at dim 0, dim-1 rows from a warp's to
+nearly one block's shared memory, N off the float4 and unaligned pointers,
+and the refusal of longer dim-1 rows; and two
 launches of each bit-equal. Marked ``cuda``: they skip
 where torch has no CUDA device, and run on the card with
 
@@ -27,7 +32,7 @@ relative); the class-plane selection and the table gather exactly; the
 scatter-add exactly on
 integer-valued cotangents, bit-equal between two launches, and on float
 cotangents within 1e-5 of the float64 sums (the plain index_add_ adds in
-atomic order).
+atomic order) and within the worst-case bound of recursive f32 summation.
 """
 
 import numpy as np
@@ -250,9 +255,27 @@ def test_collision_kernel_ragged(dev, rng, n, g):
     assert torch.equal(coll, coll_p) and torch.equal(empty, empty_p)
 
 
+def _check_scatter(idx, ct_int, ct, n):
+    """Integer cotangents exactly, two launches bit-equal, float cotangents
+    within 1e-5 of the largest float64 sum and within the worst-case bound
+    of recursive f32 summation, (rows - 1) * 2^-24 * sum |ct| per output."""
+    before = _build.launches["scatter"]
+    got = scatter_add(ct_int, idx, n)
+    assert _build.launches["scatter"] == before + 1
+    torch.testing.assert_close(got, scatter_add_plain(ct_int, idx, n), atol=0, rtol=0)
+    first, second = scatter_add(ct, idx, n), scatter_add(ct, idx, n)
+    assert torch.equal(first, second)  # deterministic, bit for bit
+    exact = scatter_add_plain(ct.double(), idx, n)
+    torch.testing.assert_close(first.double(), exact, atol=1e-5 * max(1.0, float(exact.abs().max())), rtol=0)
+    rows = scatter_add_plain(torch.ones_like(ct[..., :1], dtype=torch.float64), idx, n)
+    limit = (rows - 1).clamp(min=0) * 2.0**-24 * scatter_add_plain(ct.abs().double(), idx, n)
+    assert bool(((first.double() - exact).abs() <= limit).all())
+
+
 @pytest.mark.parametrize(
     "b,r,n,c",
-    [(2, 131072, 2048, 128), (1, 5, 3, 1), (2, 0, 7, 4), (3, 3000, 33, 33), (1, 20000, 5000, 200), (2, 1025, 2049, 257)],
+    [(2, 131072, 2048, 128), (1, 5, 3, 1), (2, 0, 7, 4), (3, 3000, 33, 33), (1, 20000, 5000, 200), (2, 1025, 2049, 257),
+     (2, 32768, 1024, 256), (1, 8192, 20000, 128), (2, 6161, 40000, 7), (1, 3000, 70, 130)],
 )
 def test_scatter_kernel_edge_cases(dev, rng, b, r, n, c):
     idx = rng.integers(0, n, size=(b, r))
@@ -260,15 +283,32 @@ def test_scatter_kernel_edge_cases(dev, rng, b, r, n, c):
     idx[:, 1::4] = idx[:, :1]  # one destination takes a quarter of the rows
     idx = torch.from_numpy(idx.astype(np.int32)).to(dev)
     ct_int = torch.from_numpy(rng.integers(-8, 9, size=(b, r, c)).astype(np.float32)).to(dev)
-    before = _build.launches["scatter"]
-    got = scatter_add(ct_int, idx, n)
-    assert _build.launches["scatter"] == before + 1
-    torch.testing.assert_close(got, scatter_add_plain(ct_int, idx, n), atol=0, rtol=0)
     ct = torch.from_numpy(rng.standard_normal((b, r, c)).astype(np.float32)).to(dev)
-    first, second = scatter_add(ct, idx, n), scatter_add(ct, idx, n)
-    assert torch.equal(first, second)  # deterministic, bit for bit
-    exact = scatter_add_plain(ct.double(), idx, n)
-    torch.testing.assert_close(first.double(), exact, atol=1e-5 * max(1.0, float(exact.abs().max())), rtol=0)
+    _check_scatter(idx, ct_int, ct, n)
+
+
+@pytest.mark.parametrize("hot", [63, 64, 65, 4096])
+def test_scatter_kernel_hot_destination(dev, rng, hot):
+    """One destination takes `hot` rows spread over the batch row (segments
+    of one sum chunk, just over it, and of 64 chunks), the others few."""
+    b, r, n, c = 2, 8192, 1024, 128
+    idx = rng.integers(0, n, size=(b, r))
+    idx[:, rng.choice(r, hot, replace=False)] = 5
+    idx = torch.from_numpy(idx.astype(np.int32)).to(dev)
+    ct_int = torch.from_numpy(rng.integers(-8, 9, size=(b, r, c)).astype(np.float32)).to(dev)
+    ct = torch.from_numpy(rng.standard_normal((b, r, c)).astype(np.float32)).to(dev)
+    _check_scatter(idx, ct_int, ct, n)
+
+
+def test_scatter_kernel_unaligned_rows(dev, rng):
+    """ct and out rows off 16 bytes (C % 4 != 0) and ct at an odd offset:
+    the kernel's scalar path."""
+    b, r, n, c = 2, 5000, 300, 6
+    idx = torch.from_numpy(rng.integers(-1, n, size=(b, r)).astype(np.int32)).to(dev)
+    flat = torch.from_numpy(rng.integers(-8, 9, size=b * r * c + 1).astype(np.float32)).to(dev)
+    ct_int = flat[1:].view(b, r, c)
+    ct = torch.from_numpy(rng.standard_normal((b, r, c)).astype(np.float32)).to(dev)
+    _check_scatter(idx, ct_int, ct, n)
 
 
 def test_scatter_kernel_refuses_what_it_cannot_take(dev):
@@ -379,7 +419,11 @@ def test_select_kernel_matches_the_cylinder_query(dev, rng):
 
 
 @pytest.mark.parametrize("dim", [0, 1])
-@pytest.mark.parametrize("m,n", [(1, 1), (19968, 128), (300, 77), (33, 4000)])
+@pytest.mark.parametrize(
+    "m,n",
+    [(1, 1), (19968, 128), (300, 77), (33, 4000), (65536, 128), (1000, 131), (50000, 96), (20000, 1030),
+     (3, 50000)],
+)
 def test_table_gather_kernel_shapes(dev, rng, dim, m, n):
     x = torch.from_numpy(rng.random((m, n)).astype(np.float32)).to(dev)
     idx = torch.from_numpy(rng.integers(0, (m, n)[dim], (m, n)).astype(np.int32)).to(dev)
@@ -389,3 +433,20 @@ def test_table_gather_kernel_shapes(dev, rng, dim, m, n):
     torch.testing.assert_close(got, table_gather_plain(x, idx, dim), atol=0, rtol=0)
     torch.testing.assert_close(got, torch.gather(x, dim, idx.long()), atol=0, rtol=0)
     assert torch.equal(got, table_gather(x, idx, dim))
+
+
+@pytest.mark.parametrize("dim", [0, 1])
+def test_table_gather_kernel_unaligned(dev, rng, dim):
+    """Tables and indices at an odd offset with N % 4 == 0: the scalar path."""
+    m, n = 777, 128
+    x = torch.from_numpy(rng.random(m * n + 1).astype(np.float32)).to(dev)[1:].view(m, n)
+    idx = torch.from_numpy(rng.integers(0, (m, n)[dim], m * n + 1).astype(np.int32)).to(dev)[1:].view(m, n)
+    got = table_gather(x, idx, dim)
+    torch.testing.assert_close(got, torch.gather(x, dim, idx.long()), atol=0, rtol=0)
+
+
+def test_table_gather_kernel_refuses_rows_past_shared_memory(dev):
+    """dim 1 stages a whole row in one block's shared memory (227 KB)."""
+    x = torch.zeros((2, 58113), device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        table_gather(x, torch.zeros_like(x, dtype=torch.int32), 1)

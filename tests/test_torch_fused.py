@@ -297,9 +297,12 @@ def test_class_plane_needs_ascending_thresholds(rng):
 # --- the table-gather probe (K13) ---
 
 
-@pytest.mark.parametrize("dim", [0, 1])
-def test_table_gather_matches_take_along_axis(rng, dim):
-    m, n = 37, 19
+# the kernel's cases beside the square-ish one: dim 0 with N % 4 != 0 on a
+# taller table (its scalar path), dim 1 with many rows of one warp each
+@pytest.mark.parametrize(
+    "dim,m,n", [(0, 37, 19), (1, 37, 19), (0, 1030, 131), (1, 300, 66)], ids=["0", "1", "0-1030x131", "1-300x66"]
+)
+def test_table_gather_matches_take_along_axis(rng, dim, m, n):
     x = rng.random((m, n)).astype(np.float32)
     idx = rng.integers(0, (m, n)[dim], (m, n)).astype(np.int32)
     want = np.asarray(jnp.take_along_axis(jnp.asarray(x), jnp.asarray(idx), axis=dim))

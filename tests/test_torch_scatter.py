@@ -26,19 +26,33 @@ from graspbalance_tpu_torch.ops.scatter import scatter_add, scatter_add_plain
 FLOAT_TOL = 2e-5
 
 
-def _case(rng, b, r, n, c, integer):
+def _case(rng, b, r, n, c, integer, hot):
     ct = rng.integers(-8, 9, size=(b, r, c)) if integer else rng.standard_normal((b, r, c))
     idx = rng.integers(0, n, size=(b, r))
     idx[:, ::7] = -1  # dropped rows
     idx[:, 1::5] = idx[:, :1]  # many duplicates of one destination
+    if hot:
+        idx[:] = n // 2  # every row on one destination
     return ct.astype(np.float32), idx.astype(np.int32)
 
 
+# the kernel's cases: a hot segment longer than one sum chunk (64 rows);
+# six whole sort tiles (1,024 rows each) and 17 rows, with more
+# destinations than one histogram block holds (32,768); no rows; C off the float4 and past
+# one pass of 128 channels
 @pytest.mark.parametrize("integer", [True, False])
-@pytest.mark.parametrize("b,r,n,c", [(2, 300, 50, 7), (1, 1000, 257, 33), (3, 17, 5, 1)])
-def test_scatter_add_matches_pallas_kernel(rng, integer, b, r, n, c):
-    ct, idx = _case(rng, b, r, n, c, integer)
-    want = np.asarray(scatter_add_matmul(jnp.asarray(ct), jnp.asarray(idx), n, interpret=True))
+@pytest.mark.parametrize(
+    "b,r,n,c,hot",
+    [(2, 300, 50, 7, False), (1, 1000, 257, 33, False), (3, 17, 5, 1, False), (2, 150, 20, 5, True),
+     (1, 3 * 2048 + 17, 33000, 3, False), (2, 0, 9, 4, False), (1, 400, 70, 130, False)],
+    ids=["2-300-50-7", "1-1000-257-33", "3-17-5-1", "hot", "tiles", "no-rows", "c130"],
+)
+def test_scatter_add_matches_pallas_kernel(rng, integer, b, r, n, c, hot):
+    ct, idx = _case(rng, b, r, n, c, integer, hot)
+    if r == 0:  # the Pallas kernel takes no empty row axis: its definition, a zero tensor
+        want = np.zeros((b, n, c), np.float32)
+    else:
+        want = np.asarray(scatter_add_matmul(jnp.asarray(ct), jnp.asarray(idx), n, interpret=True))
     got = scatter_add(torch.from_numpy(ct), torch.from_numpy(idx), n)
     assert got.shape == (b, n, c) and got.dtype == torch.float32
     if integer:
