@@ -19,7 +19,10 @@ the table-gather probe. Phases, each fatal on failure:
      parallel) and time the build;
   3. with TF32 off, compare the main path's kernels with their plain PyTorch
      versions at its shapes: FPS indices exact, query indices exact and
-     rotated coordinates within 1e-5, width MLP within 1e-4;
+     rotated coordinates within 1e-5, width MLP (3xTF32 on the tensor
+     cores) within 1e-4; time each, FPS also without its distance work (the
+     latency floor of its step chain), and print FPS's and the width MLP's
+     times before their redesign beside the new ones;
   4. run the forward + decode through the kernels, check that every kernel
      of that path was launched, run it again through the plain versions,
      and compare the valid masks (exact) and the decoded grasps (equal
@@ -30,9 +33,10 @@ the table-gather probe. Phases, each fatal on failure:
   6. compare the serving path's kernels with their plain versions at its
      shapes: kNN on the DSN's (4, 2048) and (4, 1024) seed clouds (indices
      exact, distances within 1e-6), the masked FPS on OBS's compacted slots
-     of the scenes' own objects (exact over the first max_needed slots), the
-     collision counts of phase 4's grasps against the voxel-downsampled
-     scenes (exact);
+     of the scenes' own objects (exact over the first max_needed slots), OBS
+     at num_seed=32 on a 6- and a 7-object scene, where the sparsest scene's
+     quota is not the largest (seeds exact), the collision counts of phase
+     4's grasps against the voxel-downsampled scenes (exact);
   7. run GraspInference without and with OBS through the kernels (every
      kernel of each path launched; all six on the OBS path) and through the
      plain versions: segment labels and OBS seeds exact, decoded grasps as
@@ -86,10 +90,12 @@ OBS pipeline; one training step for the scatter-add; the fused OBS pipeline
 for the mlp-max and the width MLP on rotated coordinates; the op-level
 select query; the probe phase for the table gather), its error against the
 plain version, its time, the plain version's, the card's least time for the
-work and, where one PyTorch call computes the same function, that call's
-time; the two redesigned rows are marked "redesigned" (their earlier times
-are printed in phases 9 and 14); and as the last line {"ok": true, "device": {...}}. Without CUDA it
-exits non-zero before any result. Imports nothing of JAX.
+work (FPS's rows also the measured latency floor of its step chain) and,
+where one PyTorch call computes the same function, that call's time; the
+rows of the kernels redesigned last (FPS and both width MLPs) are marked
+"redesigned" (their earlier times are printed in phases 3 and 10); and as the last
+line {"ok": true, "device": {...}}. Without CUDA it exits non-zero before
+any result. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -110,7 +116,7 @@ SEED = 0
 # and with no foreground OBS sees no object and falls back to the identity
 # seeds; seeds 1-4 do that on these scenes, seed 5 marks objects in all four
 DSN_SEED = 5
-WIDTHMLP_TOL = 1e-4  # abs; f32 FMA order differs from the plain matmuls
+WIDTHMLP_TOL = 1e-4  # abs; 3xTF32 tensor-core products against the plain f32 matmuls
 REL_TOL = 1e-5  # abs, metres; both sides round the same ops, any gap is a fault
 GRASP_TOL = 1e-4  # abs, on decoded grasps of seeds whose argmaxes agree
 KNN_DIST_TOL = 1e-6  # abs; both sides round the same ops
@@ -129,13 +135,16 @@ FUSED_MLPMAX_LAUNCHES = 19  # 4 set abstractions + 15 local aggregations per for
 FUSED_ROUNDS = 4  # alternating rounds of the default and the fused forward + decode
 FUSED_ITERS = 5  # timed calls of each configuration per round
 PROBE_REPS = 20  # timed launches of the table gather and its yardsticks
-# the two redesigned kernels, and their times before the redesign (commit
-# 5218b90; NVIDIA H100 80GB HBM3, 700.00 W, this script), printed beside the
-# new ones in phases 9 and 14: the scatter-add summed over one training
-# step's calls, the table gather at dim 0 (19,968, 128)
-REDESIGNED = ("scatter", "table_gather")
-SCATTER_BEFORE_MS = 4.149
-TABLE_GATHER_BEFORE_MS = 0.1005
+# the kernels redesigned last, marked in the kernel table, and their times
+# before (commit cc01b47; NVIDIA H100 80GB HBM3, 700.00 W, this script),
+# printed beside the new ones in phase 3: FPS at (4, 20000) -> 2048, the
+# width MLP on rotated and on gripper-frame coordinates at the main path's
+# shapes
+REDESIGNED = ("fps", "widthmlp", "widthmlp_rel")
+FPS_BEFORE_MS = 7.567
+WIDTHMLP_BEFORE_MS = 12.657
+WIDTHMLP_REL_BEFORE_MS = 11.230
+OBS_SMALL_SEEDS = 32  # phase 6's extra OBS check: a 6- and a 7-object scene
 # the kernels each path must launch
 PATH_KERNELS = {
     "main": ("fps", "multicyl", "widthmlp"),
@@ -166,10 +175,12 @@ KERNEL_TABLE = (
     ("K12", "mlpmax", "mlpmax", "mlpmax.cu", "graspbalance_tpu/ops/pallas/mlpmax_kernel.py:133", "fused_obs"),
     ("K13", "table_gather", "table_gather", "table_gather.cu", "tools/probe_mosaic_gather.py:45", "probe"),
 )
-# the card's peaks (NVIDIA H100 SXM data sheet, 700 W): device memory and
-# FP32 outside the tensor cores, the type every kernel here computes in
+# the card's peaks (NVIDIA H100 SXM data sheet, 700 W): device memory, FP32
+# outside the tensor cores, and dense TF32 on the tensor cores (the width
+# MLP's layers 1 and 2, three TF32 products per f32 product)
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
+PEAK_TF32_S = 495e12
 
 
 def require(cond: bool, msg: str) -> None:
@@ -212,10 +223,23 @@ def rate_line(iters: list[float]) -> str:
             f"ms/scene (min {per_scene[0]:.3f}, max {per_scene[-1]:.3f} over {len(iters)} calls)")
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    """The least time the card could take (ms) and what binds it."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_FP32_S * 1e3
+def bound(nbytes: float, ops: float, *more: tuple[float, float]) -> tuple[float, str]:
+    """The least time the card could take (ms) and what binds it: the bytes
+    over the memory rate, or the operations on each unit over its peak
+    (``ops`` FP32 on the CUDA cores, and ``more`` (ops, peak) pairs of other
+    units, which run beside them), whichever is longest."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = max(w / peak * 1e3 for w, peak in ((ops, PEAK_FP32_S), *more))
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def widthmlp_bound(weights, rows: int, nbytes: float) -> tuple[float, str]:
+    """The width MLP's bound over ``rows`` rows of each scale: layer 0 in
+    FP32 on the CUDA cores, layers 1 and 2 on the tensor cores in 3xTF32
+    (three TF32 products for each f32 product)."""
+    layer0 = sum(scale[0][0].numel() for scale in weights)
+    tail = sum(w.numel() for scale in weights for w, _ in scale[1:])
+    return bound(nbytes, 2.0 * layer0 * rows, (3 * 2.0 * tail * rows, PEAK_TF32_S))
 
 
 def argmax_margin(x, dim: int):
@@ -440,8 +464,8 @@ def scatter_phase(calls) -> tuple[tuple, float, tuple]:
     by_kernel = device_ms_by_kernel(lambda: [scatter_add(ct, idx, n) for ct, idx, n in calls])
     passes = {name: sum(ms for key, (ms, _) in by_kernel.items() if f"{name}_kernel" in key)
               for name in ("hist", "scan", "rank", "sum")}
-    print(f"scatter-add per step ({len(calls)} calls): kernel {times[0]:.4f} ms (before the redesign: "
-          f"{SCATTER_BEFORE_MS} ms), index_add_ {times[2]:.4f} ms, plain {times[1]:.4f} ms (CUDA events); the kernel's "
+    print(f"scatter-add per step ({len(calls)} calls): kernel {times[0]:.4f} ms, index_add_ {times[2]:.4f} ms, "
+          f"plain {times[1]:.4f} ms (CUDA events); the kernel's "
           f"device ms by pass (torch.profiler): " + ", ".join(f"{k} {v:.4f}" for k, v in passes.items())
           + f", total {sum(passes.values()):.4f}")
     # one add per (row, channel): the bytes bind
@@ -550,10 +574,10 @@ def fused_phase(model, dsn, cloud, smi: str):
         times["widthmlp_rel"] = (cuda_ms(lambda: width_mlp_fused(rel, weights), 5),
                                  cuda_ms(lambda: width_mlp_fused_plain(rel, weights), 2), None)
         b, n_r, n_h, m, k = idx.shape
-        macs = sum(w.shape[0] * w.shape[1] for scale in weights for w, _ in scale)
-        bounds["widthmlp_rel"] = bound(rel.numel() * 4 + got.numel() * 4, 2.0 * macs * b * m * n_h * k)
+        bounds["widthmlp_rel"] = widthmlp_bound(weights, b * m * n_h * k, rel.numel() * 4 + got.numel() * 4)
         print(f"width MLP (rel): {tuple(rel.shape)} -> {tuple(got.shape)} max err {errs['widthmlp_rel']:.3g} "
-              f"(max |out| {float(want.abs().max()):.3g}), two launches bit-equal")
+              f"(max |out| {float(want.abs().max()):.3g}), two launches bit-equal; {times['widthmlp_rel'][0]:.4f} ms "
+              f"(before the redesign: {WIDTHMLP_REL_BEFORE_MS} ms)")
         del rel, got, want
 
         # the class-plane selection on the same seeds: the same indices as
@@ -691,8 +715,8 @@ def probe_phase():
     dev_g = sum(ms for ms, _ in device_ms_by_kernel(lambda: torch.gather(x, dim, idx_l), PROBE_REPS).values())
     print(f"table gather: dim 0 (512, 128), dim 0 (19968, 128), dim 1 (512, 128), dim 0 (2048, 512), dim 0 "
           f"(65536, 128) exact against the plain version and torch.gather; at dim 0 (19968, 128): {times[0]:.4f} ms "
-          f"(before the redesign: {TABLE_GATHER_BEFORE_MS} ms; plain {times[1]:.4f}, torch.gather {times[2]:.4f}; CUDA "
-          f"events), device ms per launch (torch.profiler) {dev_k:.4f} against torch.gather's {dev_g:.4f}")
+          f"(plain {times[1]:.4f}, torch.gather {times[2]:.4f}; CUDA events), device ms per launch (torch.profiler) "
+          f"{dev_k:.4f} against torch.gather's {dev_g:.4f}")
     # an index in, a table value in once, a value out: 12 bytes per element
     return launches, times, 0, bound(12.0 * x.numel(), 0.0)
 
@@ -828,6 +852,7 @@ def main() -> int:
         furthest_point_sample_masked,
         furthest_point_sample_masked_plain,
         furthest_point_sample_plain,
+        initial_distances,
     )
     from graspbalance_tpu_torch.ops.gather import gather_points, group_points
     from graspbalance_tpu_torch.ops.knn import knn, knn_plain
@@ -902,6 +927,25 @@ def main() -> int:
                          cuda_ms(lambda: width_mlp_fused_rot_plain(grouped, seeds, rot, weights), 2), None),
         }
     errs = {"fps": fps_err, "multicyl": rel_err, "widthmlp": mlp_err}
+    # FPS's latency floor: the same cluster launch with the distance work
+    # taken out (csrc/fps.cu gb_fps_chain), every step only its exchange
+    planes = cloud.transpose(1, 2).contiguous()
+    dist0 = initial_distances(cloud).contiguous()
+    chain_out = torch.empty_like(fps_k)
+    lib, stream = _build.library(), _build.stream_of(cloud)
+
+    def fps_chain():
+        err = lib.gb_fps_chain(planes.data_ptr(), dist0.data_ptr(), chain_out.data_ptr(), BATCH, NUM_POINTS,
+                               n_fps, stream)
+        require(err == 0, f"fps chain launch failed: CUDA error {err}")
+
+    fps_floor_ms = cuda_ms(fps_chain, 5)
+    del planes, dist0, chain_out
+    print(f"FPS ({BATCH}, {NUM_POINTS}) -> {n_fps}: {times['fps'][0]:.4f} ms (before the redesign: {FPS_BEFORE_MS} "
+          f"ms), {times['fps'][0] / (n_fps - 1) * 1e3:.3f} us per step; latency floor (the step chain without the "
+          f"distance work) {fps_floor_ms:.4f} ms, {fps_floor_ms / (n_fps - 1) * 1e3:.3f} us per step")
+    print(f"width MLP {tuple(grouped.shape)}: {times['widthmlp'][0]:.4f} ms (before the redesign: "
+          f"{WIDTHMLP_BEFORE_MS} ms)")
 
     # least work of each main-path kernel on these inputs
     n_in = cloud.numel() * 4
@@ -918,9 +962,7 @@ def main() -> int:
     n_combo = n_r * n_h
     bounds["multicyl"] = bound(n_in + (seeds.numel() + rot.numel() + idx_k.numel()) * 4,
                                float(scan.sum()) * (21 + 3 * n_combo))
-    macs = sum(w.shape[0] * w.shape[1] for scale in weights for w, _ in scale)
-    bounds["widthmlp"] = bound(grouped.numel() * 4 + mlp_k.numel() * 4,
-                               2.0 * macs * BATCH * m * n_h * k)
+    bounds["widthmlp"] = widthmlp_bound(weights, BATCH * m * n_h * k, grouped.numel() * 4 + mlp_k.numel() * 4)
 
     # 4. the main path through the kernels, then through the plain versions
     torch.cuda.synchronize()
@@ -1006,6 +1048,21 @@ def main() -> int:
                                      (needed - 1) * n_valid * 10)
         print(f"masked FPS: {tuple(cxyz.shape)} -> {fps_cap}, {kmin} objects in the sparsest scene, "
               f"exact over max_needed={needed} slots ({int(n_valid)} valid points in {BATCH * o} rows)")
+        # OBS at a seed count where the sparsest scene's quota is not the
+        # largest: a 6- and a 7-object scene (points dealt to objects 1..k
+        # and the background in turn, shuffled) at num_seed=32, whose last
+        # objects read 7 and 8 slots
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        small_labels = torch.stack([(torch.arange(NUM_POINTS, device=dev) % (k + 1))[
+            torch.randperm(NUM_POINTS, generator=gen, device=dev)] for k in (6, 7)]).to(torch.int32)
+        small_needed = int(max_needed_steps(object_masks(small_labels).any(dim=2), OBS_SMALL_SEEDS))
+        obs_small = object_balance_indices(cloud[:2], small_labels, num_seed=OBS_SMALL_SEEDS)
+        obs_small_p = object_balance_indices(cloud[:2], small_labels, num_seed=OBS_SMALL_SEEDS, plain=True)
+        require(small_needed == 8 and torch.equal(obs_small, obs_small_p),
+                f"OBS at num_seed={OBS_SMALL_SEEDS} on a 6- and a 7-object scene: max_needed {small_needed} "
+                f"(needs 8), {int((obs_small != obs_small_p).sum())} seeds differ from the plain version")
+        print(f"OBS at num_seed={OBS_SMALL_SEEDS}, a 6- and a 7-object scene: max_needed={small_needed}, seeds exact "
+              "against the plain version")
 
         # the collision counts of phase 4's grasps on the downsampled scenes
         s_ds, s_valid = voxel_downsample_fixed(cloud)
@@ -1100,7 +1157,8 @@ def main() -> int:
             "bound_ms": bounds[measured][0],
             "bound_by": bounds[measured][1],
             "library_ms": times[measured][2],
-            **({"redesigned": True} if name in REDESIGNED else {}),
+            **({"latency_floor_ms": fps_floor_ms} if measured == "fps" else {}),
+            **({"redesigned": True} if measured in REDESIGNED else {}),
         }
         for k_num, name, measured, source, replaces, path in KERNEL_TABLE
     ]

@@ -12,49 +12,361 @@
 // distance, the lowest index on a tie. The wrapper passes the initial
 // distances (validity folded in, as the TPU kernel folds it).
 //
-// What bounds it on the H100: latency, not bytes or FLOPs. Each of the m-1
-// steps is a min + argmax over the whole cloud whose winner the next step
-// needs, so the steps cannot overlap; a (4, 20000) cloud is 240 KB per batch
-// row, and the work per step is ~20k distance updates.
+// What bounds it on the H100: the latency of the step chain, not bytes or
+// FLOPs. Each of the m-1 steps is a min + argmax over the whole cloud whose
+// winner the next step needs, so the steps cannot overlap: at (4, 20000) ->
+// 2048 the distance work is ~20k updates a step, a few hundred cycles
+// spread over a few SMs, and the rest of a step is the exchange of the
+// winner between the SMs that hold the cloud.
 //
-// Design: one block per cloud, 1024 threads. Thread t owns points
-// t, t + 1024, ... and keeps their running distances in registers; the
-// coordinates stay in the (B, 3, N) planes and are read through L1 (they do
-// not fit in shared memory beside anything else at N = 20000). Each step
-// reduces (value, index) pairs: warp shuffles, then one warp over the 32
-// warp winners in shared memory. The comparison prefers the lower index on
-// equal values, so the result does not depend on thread or warp order. The
-// distance is written with __fmul_rn/__fadd_rn so that nvcc cannot contract
-// it into an FMA: the plain version rounds every product, and one flipped
-// last bit on a near-tie changes every later index. The planes are not
-// marked __restrict__: with it, nvcc kept more values live across the step
-// loop and spilled at the 64-register cap of a 1024-thread block (12.0 ms
-// against 7.6 ms at (4, 20000) -> 2048 on an NVIDIA H100 80GB HBM3, 700 W).
+// Design (gb_fps): a thread-block cluster per cloud, of 1 to 16 blocks of
+// 128 threads on neighbouring SMs, the smallest whose threads hold at most
+// 20 points each (8 blocks at N = 20000), else 16 blocks with up to 32
+// points a thread (N <= 65536). Block r of the cluster owns the points
+// [r * 128 * P, (r + 1) * 128 * P), thread t the points t + 128 p; each
+// thread keeps its points' coordinates and running distances in registers,
+// so no coordinate is read twice. A step:
+//   1. each thread updates its distances and keeps its best (value, index,
+//      coordinates); the distance is written with __fsub_rn / __fmul_rn /
+//      __fadd_rn so that nvcc cannot contract it into an FMA (the plain
+//      version rounds every product, and one flipped last bit on a near-tie
+//      changes every later index);
+//   2. each warp reduces its 32 candidates with two redux.sync instructions
+//      (the largest value as an order-preserving int, then the lowest index
+//      among the lanes that hold it);
+//   3. the warp pushes its winner (value, index, x, y, z) into its own slot
+//      of every block of the cluster: lane c stores it into block c's shared
+//      memory with st.async, which completes bytes on block c's mbarrier;
+//   4. each block waits on its own mbarrier for all the cluster's warp
+//      winners (4 x cluster size), then every warp reduces them from its
+//      block's shared memory by the same rule, so every thread knows the
+//      winner and its coordinates. Thread 0 of block 0 writes out[j].
+// No cluster barrier and no remote load is on the step's path: one one-way
+// remote store and a local wait. (A version with one cluster barrier a step
+// and every warp reading the winners over distributed shared memory was
+// measured first, and was slower: the barrier and the remote reads each
+// cost about as much as the whole step of this one.)
+// The slots and mbarriers are double-buffered: step j + 2 writes step j's
+// slots and completes its mbarrier's next phase only after its writer has
+// received all of step j + 1's winners, and every warp sends its step j + 1
+// winner only after reading step j's slots; each block's thread 0 re-arms
+// a buffer's mbarrier (expect_tx) right after its phase completes, before
+// any step j + 2 byte can arrive. Every comparison prefers the larger value,
+// then the lower index, so the result depends on no warp, block or arrival
+// order and is bit-equal to the plain version.
 //
-// Masked mode: the initial-distance plane carries validity (-1 for an
-// invalid point, as above); the seed is each row's first valid index (index
-// 0 for a row with none), and the step count is read from a device int32,
-// max_needed, clamped to [1, m], so that OBS launches without a host sync.
-// Slots from max_needed on are written as 0 (the caller promises not to read
-// them). OBS runs S = B x 16 rows of N = 4096 compacted points: one
-// 512-thread block per row, 8 distances per thread, so that each step's
-// reduction spans 16 warps rather than 32.
+// gb_fps_chain runs the same launch with the distance work taken out (each
+// thread's best is taken once, then every step only reduces, pushes and
+// waits): the latency floor of the step chain at a shape, for measurement
+// only.
+//
+// Masked mode (gb_fps_masked): one block per row. The initial-distance
+// plane carries validity (-1 for an invalid point, as above); the seed is
+// each row's first valid index (index 0 for a row with none), and the step
+// count is read from a device int32, max_needed, clamped to [1, m], so that
+// OBS launches without a host sync. Slots from max_needed on are written as
+// 0 (the caller promises not to read them). OBS runs S = B x 16 rows of
+// N = 4096 compacted points: a 512-thread block per row, 8 distances per
+// thread, coordinates read through L1, warp winners met in shared memory.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <climits>
+#include <cmath>
 #include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 1024;       // main path: (4, 20000)
-constexpr int kMaskedThreads = 512;  // OBS: (64, 4096)
+constexpr int kThreads = 128;  // a block of the main path's cluster
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxCluster = 16;       // non-portable; 8 is the portable limit
+constexpr int kTargetPerThread = 20;  // the smallest cluster whose threads hold at most this
+constexpr int kMaxPerThread = 32;
+constexpr int kMaxPoints = kMaxCluster * kThreads * kMaxPerThread;  // 65536
+constexpr int kSlotBytes = 20;        // a winner as pushed: key, index, x, y, z
+constexpr int kMaskedThreads = 512;   // OBS: (64, 4096)
+constexpr int kMaskedBigThreads = 1024;
+constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ float sq3(float x, float y, float z) {
   return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
 }
 
-// (v, i) <- the better of (v, i) and (ov, oi): larger value, then lower index.
+// a float's order as a signed int's: larger value, larger key (-1 and the
+// padding's -inf included)
+__device__ __forceinline__ int order_key(float v) {
+  const int k = __float_as_int(v);
+  return k ^ ((k >> 31) & 0x7fffffff);
+}
+
+// a warp winner as it lands in a block's shared memory (16-byte aligned for
+// the vector store; the pad is never written)
+struct __align__(16) Slot {
+  int key;
+  unsigned idx;
+  float x, y, z;
+  int pad[3];
+};
+
+// the warp's best of the lanes' (key, idx): every lane gets (key, idx) and
+// the lane that holds it
+__device__ __forceinline__ int warp_winner(int& key, unsigned& idx) {
+  const int wk = __reduce_max_sync(0xffffffffu, key);
+  const unsigned wi = __reduce_min_sync(0xffffffffu, key == wk ? idx : 0xffffffffu);
+  const unsigned holders = __ballot_sync(0xffffffffu, key == wk && idx == wi);
+  key = wk;
+  idx = wi;
+  return __ffs(holders) - 1;
+}
+
+// the thread's best of its points (point p has index base + p * kThreads):
+// its order key, index and coordinates
+template <int P>
+__device__ __forceinline__ void thread_best(const float (&dist)[P], const float (&x)[P],
+                                            const float (&y)[P], const float (&z)[P], int base,
+                                            int& key, unsigned& idx, float& bx, float& by,
+                                            float& bz) {
+  float bv = -INFINITY;
+  idx = 0xffffffffu;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    if (dist[p] > bv) {  // the index rises with p: strict > keeps the lowest
+      bv = dist[p];
+      idx = base + p * kThreads;
+      bx = x[p];
+      by = y[p];
+      bz = z[p];
+    }
+  }
+  key = order_key(bv);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// the same shared-memory location in block `rank` of the cluster
+__device__ __forceinline__ unsigned cluster_addr(unsigned addr, int rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
+}
+
+// arm the barrier's current phase: one arrival, `bytes` to come
+__device__ __forceinline__ void mbar_expect(unsigned bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      " .reg .pred done;\n"
+      "WAIT_%=:\n"
+      " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, [%0], %1;\n"
+      " @!done bra WAIT_%=;\n"
+      "}" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// the winner into a slot of another block (cluster address), completing
+// its 20 bytes on that block's mbarrier
+__device__ __forceinline__ void push(unsigned slot, unsigned bar, int key, unsigned idx, float x, float y,
+                                     float z) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];" ::"r"(slot),
+      "r"(key), "r"(idx), "r"(__float_as_uint(x)), "r"(__float_as_uint(y)), "r"(bar)
+      : "memory");
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];" ::"r"(slot + 16),
+               "r"(__float_as_uint(z)), "r"(bar)
+               : "memory");
+}
+
+template <int P, bool kChainOnly>
+__global__ void __launch_bounds__(kThreads, 1)
+    fps_cluster_kernel(const float* __restrict__ planes, const float* __restrict__ dist0, int n,
+                       int m, int32_t* __restrict__ out) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int cloud = blockIdx.x / csize;
+  const float* px = planes + static_cast<size_t>(cloud) * 3 * n;
+  const float* py = px + n;
+  const float* pz = py + n;
+  const float* d0 = dist0 + static_cast<size_t>(cloud) * n;
+  int32_t* o = out + static_cast<size_t>(cloud) * m;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int base = rank * (kThreads * P) + t;
+  const bool writer = rank == 0 && t == 0;
+  const int winners = csize * kWarps;  // the slots a step fills in each block
+  const int step_bytes = winners * kSlotBytes;
+
+  // slot[b][r * kWarps + w]: warp w of block r's winner of a step j with j % 2 == b
+  __shared__ Slot slot[2][kMaxCluster * kWarps];
+  __shared__ __align__(8) unsigned long long bar[2];
+  if (t == 0) {
+    mbar_init(smem_addr(&bar[0]));
+    mbar_init(smem_addr(&bar[1]));
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_expect(smem_addr(&bar[1]), step_bytes);  // step 1
+    mbar_expect(smem_addr(&bar[0]), step_bytes);  // step 2
+  }
+
+  // this thread's points; padding past n has distance -inf and never wins
+  float x[P], y[P], z[P], dist[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const int i = base + p * kThreads;
+    const bool in = i < n;
+    x[p] = in ? px[i] : 0.0f;
+    y[p] = in ? py[i] : 0.0f;
+    z[p] = in ? pz[i] : 0.0f;
+    dist[p] = in ? d0[i] : -INFINITY;
+  }
+  if (writer) o[0] = 0;
+  float lx = px[0], ly = py[0], lz = pz[0];
+
+  // the thread's best candidate of the step
+  int bk = 0;
+  unsigned bi = 0;
+  float bx = 0.0f, by = 0.0f, bz = 0.0f;
+  if (kChainOnly) thread_best<P>(dist, x, y, z, base, bk, bi, bx, by, bz);
+
+  // lane c < csize pushes this warp's winners to block c
+  const int to = lane < csize ? lane : 0;
+  const unsigned to_slot0 = cluster_addr(smem_addr(&slot[0][rank * kWarps + warp]), to);
+  const unsigned to_slot1 = cluster_addr(smem_addr(&slot[1][rank * kWarps + warp]), to);
+  const unsigned to_bar0 = cluster_addr(smem_addr(&bar[0]), to);
+  const unsigned to_bar1 = cluster_addr(smem_addr(&bar[1]), to);
+  unsigned parity = 0;  // bit b: the parity of buffer b's phase to wait for
+  // every block's mbarriers are armed before anything is pushed to them
+  cluster.sync();
+  for (int j = 1; j < m; ++j) {
+    if (!kChainOnly) {
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const float d = sq3(__fsub_rn(x[p], lx), __fsub_rn(y[p], ly), __fsub_rn(z[p], lz));
+        dist[p] = fminf(dist[p], d);
+      }
+      thread_best<P>(dist, x, y, z, base, bk, bi, bx, by, bz);
+    }
+    int key = bk;
+    unsigned idx = bi;
+    int from = warp_winner(key, idx);
+    const int buf = j & 1;
+    {
+      const float wx = __shfl_sync(0xffffffffu, bx, from);
+      const float wy = __shfl_sync(0xffffffffu, by, from);
+      const float wz = __shfl_sync(0xffffffffu, bz, from);
+      if (lane < csize) push(buf ? to_slot1 : to_slot0, buf ? to_bar1 : to_bar0, key, idx, wx, wy, wz);
+    }
+    const unsigned my_bar = smem_addr(&bar[buf]);
+    mbar_wait(my_bar, (parity >> buf) & 1);
+    parity ^= 1u << buf;
+    if (t == 0 && j + 2 < m) mbar_expect(my_bar, step_bytes);
+
+    // the cluster's winners of this step, up to kMaxCluster * kWarps / 32 a
+    // lane, reduced by the same rule
+    constexpr int kPerLane = kMaxCluster * kWarps / 32;
+    key = INT_MIN;
+    idx = 0xffffffffu;
+    float wx = 0.0f, wy = 0.0f, wz = 0.0f;
+#pragma unroll
+    for (int q = 0; q < kPerLane; ++q) {
+      const int e = lane + 32 * q;
+      if (e < winners) {
+        const Slot& c = slot[buf][e];
+        if (c.key > key || (c.key == key && c.idx < idx)) {
+          key = c.key;
+          idx = c.idx;
+          wx = c.x;
+          wy = c.y;
+          wz = c.z;
+        }
+      }
+    }
+    from = warp_winner(key, idx);
+    lx = __shfl_sync(0xffffffffu, wx, from);
+    ly = __shfl_sync(0xffffffffu, wy, from);
+    lz = __shfl_sync(0xffffffffu, wz, from);
+    if (writer) o[j] = static_cast<int32_t>(idx);
+  }
+  // a block's shared memory must outlive the cluster's accesses to it
+  cluster.sync();
+}
+
+// clusters past 8 blocks, allowed once per instantiation, process and device
+template <int P, bool kChainOnly>
+cudaError_t allow_wide_clusters() {
+  static bool done[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    err = cudaFuncSetAttribute(fps_cluster_kernel<P, kChainOnly>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    done[dev] = true;
+  }
+  return cudaSuccess;
+}
+
+template <int P, bool kChainOnly>
+cudaError_t launch_cluster(const float* planes, const float* dist0, int32_t* out, int b, int n, int m,
+                           int c, cudaStream_t stream) {
+  cudaError_t err = allow_wide_clusters<P, kChainOnly>();
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(b) * c);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = c;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, fps_cluster_kernel<P, kChainOnly>, planes, dist0, n, m, out);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// the cluster size for n points: the smallest whose threads hold at most
+// kTargetPerThread points each, else the largest
+int cluster_for(int n) {
+  for (int c = 1; c < kMaxCluster; c *= 2)
+    if (n <= c * kThreads * kTargetPerThread) return c;
+  return kMaxCluster;
+}
+
+template <bool kChainOnly>
+cudaError_t launch_fps(const float* planes, const float* dist0, int32_t* out, int b, int n, int m,
+                       cudaStream_t s) {
+  if (b < 1 || n < 1 || n > kMaxPoints || m < 1) return cudaErrorInvalidValue;
+  const int c = cluster_for(n);
+  const int per = (n + c * kThreads - 1) / (c * kThreads);
+  if (per <= 1) return launch_cluster<1, kChainOnly>(planes, dist0, out, b, n, m, c, s);
+  if (per <= 2) return launch_cluster<2, kChainOnly>(planes, dist0, out, b, n, m, c, s);
+  if (per <= 4) return launch_cluster<4, kChainOnly>(planes, dist0, out, b, n, m, c, s);
+  if (per <= 8) return launch_cluster<8, kChainOnly>(planes, dist0, out, b, n, m, c, s);
+  if (per <= 12) return launch_cluster<12, kChainOnly>(planes, dist0, out, b, n, m, c, s);
+  if (per <= 16) return launch_cluster<16, kChainOnly>(planes, dist0, out, b, n, m, c, s);
+  if (per <= 20) return launch_cluster<20, kChainOnly>(planes, dist0, out, b, n, m, c, s);
+  if (per <= 24) return launch_cluster<24, kChainOnly>(planes, dist0, out, b, n, m, c, s);
+  return launch_cluster<kMaxPerThread, kChainOnly>(planes, dist0, out, b, n, m, c, s);
+}
+
 __device__ __forceinline__ void keep_better(float& v, int& i, float ov, int oi) {
   if (ov > v || (ov == v && oi < i)) {
     v = ov;
@@ -71,11 +383,11 @@ __device__ __forceinline__ void warp_best(float& v, int& i) {
   }
 }
 
-template <int T, int P, bool MASKED>
+template <int T, int P>
 __global__ void __launch_bounds__(T, 1)
-    fps_kernel(const float* planes, const float* __restrict__ dist0, int n, int m,
-               const int32_t* __restrict__ needed, int32_t* __restrict__ out) {
-  constexpr int kWarps = T / 32;
+    fps_masked_kernel(const float* planes, const float* __restrict__ dist0, int n, int m,
+                      const int32_t* __restrict__ needed, int32_t* __restrict__ out) {
+  constexpr int kBlockWarps = T / 32;
   const float* px = planes + static_cast<size_t>(blockIdx.x) * 3 * n;
   const float* d0 = dist0 + static_cast<size_t>(blockIdx.x) * n;
   const float* py = px + n;
@@ -96,23 +408,19 @@ __global__ void __launch_bounds__(T, 1)
     dist[p] = i < n ? d0[i] : -1.0f;
   }
 
-  int seed = 0;
-  int steps = m;
-  if (MASKED) {
-    // seed: the first valid index (0 when the row has none)
-    int first = INT_MAX;
+  // seed: the first valid index (0 when the row has none)
+  int first = INT_MAX;
 #pragma unroll
-    for (int p = P - 1; p >= 0; --p) {
-      if (dist[p] > 0.0f) first = t + p * T;
-    }
-    if (t == 0) s_best = INT_MAX;
-    __syncthreads();
-    if (first != INT_MAX) atomicMin(&s_best, first);
-    __syncthreads();
-    seed = s_best == INT_MAX ? 0 : s_best;
-    steps = min(max(*needed, 1), m);
-    for (int j = steps + t; j < m; j += T) o[j] = 0;
+  for (int p = P - 1; p >= 0; --p) {
+    if (dist[p] > 0.0f) first = t + p * T;
   }
+  if (t == 0) s_best = INT_MAX;
+  __syncthreads();
+  if (first != INT_MAX) atomicMin(&s_best, first);
+  __syncthreads();
+  const int seed = s_best == INT_MAX ? 0 : s_best;
+  const int steps = min(max(*needed, 1), m);
+  for (int j = steps + t; j < m; j += T) o[j] = 0;
   if (t == 0) o[0] = seed;
 
   float lx = px[seed], ly = py[seed], lz = pz[seed];
@@ -123,8 +431,7 @@ __global__ void __launch_bounds__(T, 1)
     for (int p = 0; p < P; ++p) {
       const int i = t + p * T;
       if (i < n) {
-        const float d = sq3(__fsub_rn(px[i], lx), __fsub_rn(py[i], ly),
-                            __fsub_rn(pz[i], lz));
+        const float d = sq3(__fsub_rn(px[i], lx), __fsub_rn(py[i], ly), __fsub_rn(pz[i], lz));
         const float nd = fminf(dist[p], d);
         dist[p] = nd;
         if (nd > bv) {  // i rises with p: strict > keeps the lowest index
@@ -140,8 +447,8 @@ __global__ void __launch_bounds__(T, 1)
     }
     __syncthreads();
     if (warp == 0) {
-      bv = lane < kWarps ? s_val[lane] : -2.0f;
-      bi = lane < kWarps ? s_idx[lane] : INT_MAX;
+      bv = lane < kBlockWarps ? s_val[lane] : -2.0f;
+      bi = lane < kBlockWarps ? s_idx[lane] : INT_MAX;
       warp_best(bv, bi);
       if (lane == 0) {
         s_best = bi;
@@ -156,53 +463,51 @@ __global__ void __launch_bounds__(T, 1)
   }
 }
 
-template <int T, int P, bool MASKED>
-cudaError_t launch(const float* planes, const float* dist0, const int32_t* needed, int32_t* out,
-                   int b, int n, int m, cudaStream_t stream) {
-  fps_kernel<T, P, MASKED><<<b, T, 0, stream>>>(planes, dist0, n, m, needed, out);
+template <int T, int P>
+cudaError_t launch_masked(const float* planes, const float* dist0, const int32_t* needed, int32_t* out,
+                          int b, int n, int m, cudaStream_t stream) {
+  fps_masked_kernel<T, P><<<b, T, 0, stream>>>(planes, dist0, n, m, needed, out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // planes: (B, 3, N) f32; dist0: (B, N) f32 initial distances (1e10, or -1
-// for a point never to be selected); out: (B, m) int32. N <= 32768.
+// for a point never to be selected); out: (B, m) int32. N <= 65536.
 extern "C" int gb_fps(const float* planes, const float* dist0, int32_t* out, int b, int n, int m,
                       void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int per_thread = (n + kThreads - 1) / kThreads;
-  constexpr int T = kThreads;
-  cudaError_t err;
-  if (per_thread <= 1) err = launch<T, 1, false>(planes, dist0, nullptr, out, b, n, m, s);
-  else if (per_thread <= 2) err = launch<T, 2, false>(planes, dist0, nullptr, out, b, n, m, s);
-  else if (per_thread <= 4) err = launch<T, 4, false>(planes, dist0, nullptr, out, b, n, m, s);
-  else if (per_thread <= 8) err = launch<T, 8, false>(planes, dist0, nullptr, out, b, n, m, s);
-  else if (per_thread <= 16) err = launch<T, 16, false>(planes, dist0, nullptr, out, b, n, m, s);
-  else if (per_thread <= 20) err = launch<T, 20, false>(planes, dist0, nullptr, out, b, n, m, s);
-  else if (per_thread <= 24) err = launch<T, 24, false>(planes, dist0, nullptr, out, b, n, m, s);
-  else if (per_thread <= 32) err = launch<T, 32, false>(planes, dist0, nullptr, out, b, n, m, s);
-  else err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  return static_cast<int>(
+      launch_fps<false>(planes, dist0, out, b, n, m, static_cast<cudaStream_t>(stream)));
+}
+
+// gb_fps's launch with the distance work taken out: every step only
+// reduces the same candidates, pushes them across the cluster and waits.
+// out gets the same index at every step; for timing the chain alone.
+extern "C" int gb_fps_chain(const float* planes, const float* dist0, int32_t* out, int b, int n, int m,
+                            void* stream) {
+  return static_cast<int>(
+      launch_fps<true>(planes, dist0, out, b, n, m, static_cast<cudaStream_t>(stream)));
 }
 
 // Masked mode. planes: (S, 3, N) f32; dist0: (S, N) f32 (1e10 for a valid
 // point, -1 otherwise); needed: one device int32, the number of leading
 // slots the caller reads; out: (S, m) int32. N <= 32768 (rows past 16384
-// points take the main path's 1024-thread blocks).
+// points take 1024-thread blocks).
 extern "C" int gb_fps_masked(const float* planes, const float* dist0, const int32_t* needed,
                              int32_t* out, int b, int n, int m, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int per_thread = (n + kMaskedThreads - 1) / kMaskedThreads;
   constexpr int T = kMaskedThreads;
+  constexpr int TB = kMaskedBigThreads;
   cudaError_t err;
-  if (per_thread <= 1) err = launch<T, 1, true>(planes, dist0, needed, out, b, n, m, s);
-  else if (per_thread <= 2) err = launch<T, 2, true>(planes, dist0, needed, out, b, n, m, s);
-  else if (per_thread <= 4) err = launch<T, 4, true>(planes, dist0, needed, out, b, n, m, s);
-  else if (per_thread <= 8) err = launch<T, 8, true>(planes, dist0, needed, out, b, n, m, s);
-  else if (per_thread <= 16) err = launch<T, 16, true>(planes, dist0, needed, out, b, n, m, s);
-  else if (per_thread <= 32) err = launch<T, 32, true>(planes, dist0, needed, out, b, n, m, s);
-  else if (n <= 20 * kThreads) err = launch<kThreads, 20, true>(planes, dist0, needed, out, b, n, m, s);
-  else if (n <= 32 * kThreads) err = launch<kThreads, 32, true>(planes, dist0, needed, out, b, n, m, s);
+  if (per_thread <= 1) err = launch_masked<T, 1>(planes, dist0, needed, out, b, n, m, s);
+  else if (per_thread <= 2) err = launch_masked<T, 2>(planes, dist0, needed, out, b, n, m, s);
+  else if (per_thread <= 4) err = launch_masked<T, 4>(planes, dist0, needed, out, b, n, m, s);
+  else if (per_thread <= 8) err = launch_masked<T, 8>(planes, dist0, needed, out, b, n, m, s);
+  else if (per_thread <= 16) err = launch_masked<T, 16>(planes, dist0, needed, out, b, n, m, s);
+  else if (per_thread <= 32) err = launch_masked<T, 32>(planes, dist0, needed, out, b, n, m, s);
+  else if (n <= 20 * TB) err = launch_masked<TB, 20>(planes, dist0, needed, out, b, n, m, s);
+  else if (n <= 32 * TB) err = launch_masked<TB, 32>(planes, dist0, needed, out, b, n, m, s);
   else err = cudaErrorInvalidValue;
   return static_cast<int>(err);
 }

@@ -57,13 +57,18 @@ def object_masks(seed_cluster: torch.Tensor, max_objects: int = MAX_OBJECTS) -> 
 def max_needed_steps(present: torch.Tensor, num_seed: int, fps_cap: int = FPS_CAP) -> torch.Tensor:
     """The largest per-slot quota any scene of the batch reads, as an int64
     scalar on the device: the last present object of a scene with k objects
-    gets num_seed // k + num_seed % k, cycled into fps_cap. present (B, O)
-    bool; a zero-object scene reads nothing and counts as the cheapest case
-    (k = O)."""
+    gets num_seed // k + num_seed % k slots, cycled into fps_cap, and no
+    other object of the scene gets more. present (B, O) bool; a zero-object
+    scene reads nothing and counts as the cheapest case (k = O).
+
+    The maximum is taken over the scenes' own quotas: the quota of the
+    scene with the fewest objects is not always the largest, since the
+    remainder num_seed % k does not fall with k (at num_seed=32 a 6-object
+    scene's last object takes 7 slots, a 7-object scene's 8)."""
     o = present.shape[1]
     counts = present.sum(dim=1)
-    kmin = torch.clamp(torch.where(counts > 0, counts, o).min(), min=1)
-    return torch.clamp(num_seed // kmin + num_seed % kmin, max=fps_cap)
+    k = torch.where(counts > 0, counts, o).clamp(min=1)
+    return torch.clamp(num_seed // k + num_seed % k, max=fps_cap).amax()
 
 
 def object_balance_indices(

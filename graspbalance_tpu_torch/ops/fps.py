@@ -11,7 +11,9 @@ for a row with none), and invalid points are never selected.
 
 ``furthest_point_sample`` and ``furthest_point_sample_masked`` launch the
 CUDA kernel (``csrc/fps.cu``, its masked mode for the latter) on a CUDA
-tensor and run their plain versions on a CPU tensor.
+tensor and run their plain versions on a CPU tensor. The kernel takes
+clouds of up to ``MAX_POINTS`` = 65,536 points, its masked mode rows of up
+to ``MASKED_MAX_POINTS`` = 32,768; the plain versions take any N.
 """
 
 from __future__ import annotations
@@ -22,7 +24,11 @@ from graspbalance_tpu_torch import _build
 
 INIT_DIST = 1e10
 ORIGIN_EPS = 1e-3
-MAX_POINTS = 32 * 1024  # the kernel keeps at most 32 distances per thread
+# the kernels' limits on N: the main kernel spreads a cloud over a cluster
+# of up to 16 blocks of 128 threads with at most 32 points each, the masked
+# kernel a row over one block of up to 1,024 threads with 32 points each
+MAX_POINTS = 16 * 128 * 32
+MASKED_MAX_POINTS = 32 * 1024
 
 
 def _check_xyz(xyz: torch.Tensor) -> None:
@@ -123,8 +129,8 @@ def furthest_point_sample_masked(
     _build.require_cuda("xyz", xyz, torch.float32, 3)
     _build.require_cuda("valid", valid, torch.bool, 2)
     s, n, _ = xyz.shape
-    if not 1 <= n <= MAX_POINTS:
-        raise ValueError(f"the masked FPS kernel takes 1..{MAX_POINTS} points, got {n}")
+    if not 1 <= n <= MASKED_MAX_POINTS:
+        raise ValueError(f"the masked FPS kernel takes 1..{MASKED_MAX_POINTS} points, got {n}")
     if num_samples < 1:
         raise ValueError(f"num_samples must be >= 1, got {num_samples}")
     if max_needed is None:

@@ -14,8 +14,12 @@ selection rows with no hit and with fewer hits than k, and row lengths off
 the warp's 32; for the table gather non-square tables on both axes, tables past
 the old design's shared-memory limit at dim 0, dim-1 rows from a warp's to
 nearly one block's shared memory, N off the float4 and unaligned pointers,
-and the refusal of longer dim-1 rows; and two
-launches of each bit-equal. Marked ``cuda``: they skip
+and the refusal of longer dim-1 rows; for FPS on a cluster of blocks N
+around every cluster size and block slice at B = 1, 3 and 5, and exact ties
+across the blocks of a cluster; for both width-MLP layouts seed counts off
+the persistent blocks' stride, 10x the usual coordinates and pre-activations
+centred on the ReLU's edge; OBS at seed counts where the sparsest scene's
+quota is not the largest; and two launches of each bit-equal. Marked ``cuda``: they skip
 where torch has no CUDA device, and run on the card with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -25,8 +29,8 @@ machine does not have; this file needs none of it.)
 
 Tolerances: FPS, masked FPS, query and kNN indices, rotated coordinates,
 kNN distances and collision counts exactly (both sides round the same
-operations in the same order); the width MLP within 1e-5 (f32 FMA against
-the plain matmuls' summation order), as the width MLP on gripper-frame
+operations in the same order); the width MLP within 1e-5 (3xTF32 on the tensor
+cores against the plain f32 matmuls), as the width MLP on gripper-frame
 coordinates and the fused group MLP + reduction (1e-5 absolute and
 relative); the class-plane selection and the table gather exactly; the
 scatter-add exactly on
@@ -41,6 +45,7 @@ import torch
 
 from graspbalance_tpu_torch import _build
 from graspbalance_tpu_torch.eval.collision import collision_detect
+from graspbalance_tpu_torch.eval.obs import object_balance_indices
 from graspbalance_tpu_torch.models.heads import MultiScaleWidthGrouping
 from graspbalance_tpu_torch.ops.collision import collision_counts, collision_counts_plain, pack_grasp_params
 from graspbalance_tpu_torch.ops.gather import _flat_take, gather_points, group_points
@@ -115,7 +120,44 @@ def test_fps_kernel_refuses_what_it_cannot_take(dev):
     with pytest.raises(ValueError, match="float32"):
         furthest_point_sample(torch.zeros((1, 10, 3), dtype=torch.float64, device=dev), 4)
     with pytest.raises(ValueError, match="points"):
-        furthest_point_sample(torch.zeros((1, 40000, 3), device=dev), 4)
+        furthest_point_sample(torch.zeros((1, 65537, 3), device=dev), 4)
+    with pytest.raises(ValueError, match="points"):
+        furthest_point_sample_masked(
+            torch.zeros((1, 32769, 3), device=dev), torch.ones((1, 32769), dtype=torch.bool, device=dev), 4
+        )
+
+
+# csrc/fps.cu spreads a cloud over a cluster of 1, 2, 4, 8 or 16 blocks of
+# 128 threads: the smallest whose threads hold at most 20 points each (up to
+# 2,560, 5,120, 10,240 and 20,480 points), else 16 blocks with up to 32
+# points a thread; a block's slice is 128 x its points per thread
+@pytest.mark.parametrize("b", [1, 3, 5])
+@pytest.mark.parametrize(
+    "n", [127, 128, 129, 2559, 2560, 2561, 5120, 5121, 10240, 10241, 20479, 20480, 20481, 40961, 65536]
+)
+def test_fps_kernel_cluster_boundaries(dev, rng, b, n):
+    xyz = torch.from_numpy((rng.random((b, n, 3)) - 0.5).astype(np.float32)).to(dev)
+    m = min(n, 200)
+    got = furthest_point_sample(xyz, m)
+    torch.testing.assert_close(got, furthest_point_sample_plain(xyz, m), atol=0, rtol=0)
+    assert torch.equal(got, furthest_point_sample(xyz, m))
+
+
+@pytest.mark.parametrize("n,m", [(20000, 2048), (40000, 1000), (3000, 3000)])
+def test_fps_kernel_ties_across_the_cluster(dev, rng, n, m):
+    """One block's slice at N = 20000 (128 x 20 points) of integer-grid
+    points repeated over the cloud:
+    every value has exact ties in other blocks of the cluster, so the lower
+    index must win across distributed shared memory; near-origin points in
+    every block; m up to N (the distances reach 0 everywhere)."""
+    tile = rng.integers(-4, 5, size=(2, 2560, 3)).astype(np.float32)
+    g = np.tile(tile, (1, -(-n // 2560), 1))[:, :n].copy()
+    g[:, 7::997] = 0.001  # |p|^2 = 3e-6: never selected
+    xyz = torch.from_numpy(g).to(dev)
+    got = furthest_point_sample(xyz, m)
+    torch.testing.assert_close(got, furthest_point_sample_plain(xyz, m), atol=0, rtol=0)
+    near = (xyz * xyz).sum(dim=-1) <= 1e-3
+    assert not bool(near.gather(1, got[:, 1:].long()).any())
 
 
 @pytest.mark.parametrize("nsample", [1, 16, 64, 100])
@@ -388,6 +430,82 @@ def test_widthmlp_rel_kernel_matches_plain(dev, rng, s):
     assert got.shape == (2, 4, s, 1024)
     torch.testing.assert_close(got, width_mlp_fused_plain(rel, weights), atol=1e-5, rtol=1e-5)
     assert torch.equal(got, width_mlp_fused(rel, weights))
+
+
+def _width_inputs(rng, b, s, spread):
+    """The same neighbourhoods in both width-MLP layouts: rel (B, R, H, S,
+    K, 3) gripper-frame offsets of std ``spread``, and grouped (B, S, R, H,
+    K, 3) = centers + rel @ rot^T with centers (B, S, 3), rot (B, S, 3, 3)."""
+    rel = (rng.standard_normal((b, 4, 4, s, 64, 3)) * spread).astype(np.float32)
+    centers = (rng.random((b, s, 3)) - 0.5).astype(np.float32)
+    rot = _rotations(rng, (b, s))
+    grouped = centers[:, :, None, None, None] + np.einsum("brhskj,bsij->bsrhki", rel, rot)
+    return [torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)) for a in (rel, grouped, centers, rot)]
+
+
+def _centred_biases(rel, weights):
+    """The weights with b1 moved by each column's median pre-activation over
+    ``rel``, and b2 by its 63/64 quantile: about half of layer 1's outputs,
+    and about half of the maxima over 64 rows of layer 2's, then sit near 0,
+    on both sides of the ReLU."""
+    out = []
+    for ri, ((w0, b0), (w1, b1), (w2, b2)) in enumerate(weights):
+        x = rel[:, ri].reshape(-1, 3)
+        h1 = torch.relu(x @ w0 + b0)
+        b1 = b1 - (h1 @ w1 + b1).median(dim=0).values
+        h2 = torch.relu(h1 @ w1 + b1)
+        b2 = b2 - torch.quantile(h2 @ w2 + b2, 63 / 64, dim=0)
+        out.append(((w0, b0), (w1, b1), (w2, b2)))
+    return tuple(out)
+
+
+@pytest.mark.parametrize("layout", ["rot", "rel"])
+@pytest.mark.parametrize("case", ["seeds_off_the_stride", "ten_times_the_spread", "relu_edges"])
+def test_widthmlp_kernels_edge_cases(dev, rng, layout, case):
+    """Both layouts: a seed count whose groups are no multiple of the
+    persistent blocks' stride over a scale (the SM count / 4), coordinates
+    of 10x the usual spread, and pre-activations centred on 0. Within 1e-5
+    (3xTF32 on the tensor cores against the plain f32 matmuls) and two
+    launches bit-equal."""
+    b, s, spread = {"seeds_off_the_stride": (2, 1000, 0.05), "ten_times_the_spread": (2, 37, 0.5),
+                    "relu_edges": (2, 37, 0.05)}[case]
+    rel, grouped, centers, rot = (a.to(dev) for a in _width_inputs(rng, b, s, spread))
+    weights = init_random_(MultiScaleWidthGrouping(), seed=5).to(dev).folded_weights()
+    if case == "relu_edges":
+        weights = _centred_biases(rel, weights)
+    if layout == "rot":
+        run = lambda: width_mlp_fused_rot(grouped, centers, rot, weights)  # noqa: E731
+        want = width_mlp_fused_rot_plain(grouped, centers, rot, weights)
+    else:
+        run = lambda: width_mlp_fused(rel, weights)  # noqa: E731
+        want = width_mlp_fused_plain(rel, weights)
+    got = run()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    assert torch.equal(got, run())
+    if case == "relu_edges":
+        assert 0.05 < float((want == 0).float().mean()) < 0.95
+
+
+def _obs_scenes(rng, counts, n=3000):
+    """Points (B, n, 3) and instance labels with counts[b] objects in scene
+    b (plus background), every object non-empty."""
+    pts = (rng.random((len(counts), n, 3)) - 0.5).astype(np.float32)
+    labels = np.stack([rng.permutation(np.arange(n) % (k + 1)) for k in counts]).astype(np.int32)
+    return torch.from_numpy(pts), torch.from_numpy(labels)
+
+
+@pytest.mark.parametrize("counts,num_seed", [((6, 7), 32), ((7, 6), 32), ((3, 5, 11), 64), ((16, 1), 1024)])
+def test_obs_through_the_masked_kernel_matches_plain(dev, rng, counts, num_seed):
+    """OBS's masked FPS stops at max_needed_steps and writes 0 past it; the
+    seeds must equal the plain version's, which selects every slot. At
+    num_seed=32 the 7-object scene's last object reads 8 slots, more than
+    the 6-object scene's 7."""
+    pts, labels = (a.to(dev) for a in _obs_scenes(rng, counts))
+    before = _build.launches["fps_masked"]
+    got = object_balance_indices(pts, labels, num_seed=num_seed)
+    assert _build.launches["fps_masked"] == before + 1
+    want = object_balance_indices(pts, labels, num_seed=num_seed, plain=True)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
 @pytest.mark.parametrize("n,k", [(1, 4), (31, 16), (3001, 64), (20000, 64), (500, 100)])

@@ -1,10 +1,13 @@
 """The port's fused width MLP (graspbalance_tpu_torch.ops.widthmlp) against
 the JAX package's Pallas kernel width_mlp_fused_rot in interpret mode, with
-the same BN-folded weights (random, non-trivial BN statistics).
+the same BN-folded weights (random, non-trivial BN statistics); and the
+error model of the CUDA kernel's arithmetic, 3xTF32 on the tensor cores,
+emulated here on the CPU against a float64 MLP.
 
 Tolerance: 1e-5 absolute and relative (f32; the products are summed in
 another order, and layer 0's rotation fold is formed by broadcast sums on
-one side and an einsum on the other)."""
+one side and an einsum on the other). The 3xTF32 emulation within 1e-5 of
+float64, the kernel's own bound on the card; one TF32 pass exceeds it."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +23,57 @@ from graspbalance_tpu_torch.ops.widthmlp import (
 from graspbalance_tpu_torch.weights import init_random_
 
 TOL = 1e-5
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round f32 to TF32 (10 mantissa bits) to nearest, ties away from zero,
+    on the bit pattern: what cvt.rna.tf32.f32 does to a finite value."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x: torch.Tensor):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the kernel forms it: lo_a hi_b + hi_a lo_b + hi_a hi_b, the
+    TF32 products exact, summed in f32 (lo_a lo_b dropped)."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _matmul_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _tf32(a) @ _tf32(b)
+
+
+def _mlp_max(x, weights, matmul, dtype):
+    """x (G, K, 3) -> (G, C_last): the scale MLP, ReLU after each layer,
+    then the max over K; layer 0 in plain ``dtype`` (the kernel runs it on
+    the CUDA cores in f32), layers 1 and 2 through ``matmul``."""
+    (w0, b0), *tail = [(w.to(dtype), b.to(dtype)) for w, b in weights]
+    h = torch.relu(x.to(dtype) @ w0 + b0)
+    for w, b in tail:
+        h = torch.relu(matmul(h, w) + b)
+    return h.amax(dim=1)
+
+
+@pytest.mark.parametrize("arith,within", [("3xtf32", True), ("tf32", False)])
+def test_width_mlp_3xtf32_error_model(rng, arith, within):
+    """At the kernel's widths (K=64, 3-64-128-256) on 64 groups of each
+    scale: 3xTF32 stays within 1e-5 of float64, one TF32 pass does not;
+    that is why the kernel pays for three products."""
+    head = init_random_(MultiScaleWidthGrouping(), seed=5)
+    x = torch.from_numpy((rng.standard_normal((64, 64, 3)) * 0.05).astype(np.float32))
+    matmul = _matmul_3xtf32 if arith == "3xtf32" else _matmul_tf32
+    err = 0.0
+    for layers in head.folded_weights():
+        got = _mlp_max(x, layers, matmul, torch.float32)
+        want = _mlp_max(x, layers, lambda a, b: a @ b, torch.float64)
+        assert float(want.abs().max()) > 0.1  # the comparison is not between near-zeros
+        err = max(err, float((got.double() - want).abs().max()))
+    assert (err <= TOL) == within, err
 
 
 def _inputs(rng, b, s, r, h, k):
