@@ -18,11 +18,12 @@ the table-gather probe. Phases, each fatal on failure:
   2. build the CUDA kernels from csrc/*.cu (one nvcc per source, all in
      parallel) and time the build;
   3. with TF32 off, compare the main path's kernels with their plain PyTorch
-     versions at its shapes: FPS indices exact, query indices exact and
-     rotated coordinates within 1e-5, width MLP (3xTF32 on the tensor
+     versions at its shapes: FPS indices exact, query indices and rotated
+     coordinates bit-equal in both modes, width MLP (3xTF32 on the tensor
      cores) within 1e-4; time each, FPS also without its distance work (the
-     latency floor of its step chain), and print FPS's and the width MLP's
-     times before their redesign beside the new ones;
+     latency floor of its step chain), the query in both modes (indices
+     only, and with the gripper-frame coordinates), printed beside its time
+     before its redesign;
   4. run the forward + decode through the kernels, check that every kernel
      of that path was launched, run it again through the plain versions,
      and compare the valid masks (exact) and the decoded grasps (equal
@@ -66,7 +67,9 @@ the table-gather probe. Phases, each fatal on failure:
  10. the fused configuration's kernels against their plain versions at its
      shapes, on the same weights as the default model: the mlp-max kernel
      at each of the 19 calls of one fused forward, captured from it (within
-     1e-4 abs + rel, two launches bit-equal); the width MLP on the cylinder
+     1e-4 abs + rel, two launches bit-equal), timed per call beside the
+     call's bound (3xTF32 on the tensor cores) and, summed over the forward,
+     beside its bound with every operation in FP32; the width MLP on the cylinder
      query's gripper-frame coordinates of that forward's seeds and top-view
      rotations (within 1e-4); the class-plane selection on the same seeds
      (indices exact against its plain version and against the cylinder
@@ -92,8 +95,8 @@ select query; the probe phase for the table gather), its error against the
 plain version, its time, the plain version's, the card's least time for the
 work (FPS's rows also the measured latency floor of its step chain) and,
 where one PyTorch call computes the same function, that call's time; the
-rows of the kernels redesigned last (FPS and both width MLPs) are marked
-"redesigned" (their earlier times are printed in phases 3 and 10); and as the last
+rows of the kernels redesigned last (the cylinder query and the mlp-max) are
+marked "redesigned" (their earlier times are printed in phases 3 and 10); and as the last
 line {"ok": true, "device": {...}}. Without CUDA it exits non-zero before
 any result. Imports nothing of JAX.
 """
@@ -136,14 +139,13 @@ FUSED_ROUNDS = 4  # alternating rounds of the default and the fused forward + de
 FUSED_ITERS = 5  # timed calls of each configuration per round
 PROBE_REPS = 20  # timed launches of the table gather and its yardsticks
 # the kernels redesigned last, marked in the kernel table, and their times
-# before (commit cc01b47; NVIDIA H100 80GB HBM3, 700.00 W, this script),
-# printed beside the new ones in phase 3: FPS at (4, 20000) -> 2048, the
-# width MLP on rotated and on gripper-frame coordinates at the main path's
-# shapes
-REDESIGNED = ("fps", "widthmlp", "widthmlp_rel")
-FPS_BEFORE_MS = 7.567
-WIDTHMLP_BEFORE_MS = 12.657
-WIDTHMLP_REL_BEFORE_MS = 11.230
+# before (commit ebc1ec2; NVIDIA H100 80GB HBM3, 700.00 W, this script),
+# printed beside the new ones in phases 3 and 10: the cylinder query at the
+# main path's shapes (indices only), the mlp-max summed over one fused
+# forward's 19 calls
+REDESIGNED = ("multicyl", "mlpmax")
+MULTICYL_BEFORE_MS = 1.328
+MLPMAX_BEFORE_MS = 10.697
 OBS_SMALL_SEEDS = 32  # phase 6's extra OBS check: a 6- and a 7-object scene
 # the kernels each path must launch
 PATH_KERNELS = {
@@ -493,16 +495,42 @@ def capture_mlpmax(fn) -> list:
     return launched
 
 
+def mlpmax_bound(parts, weights, out) -> tuple[tuple[float, str], tuple[float, str]]:
+    """The mlp-max kernel's bound on one call, and its bound with every
+    operation on the FP32 CUDA cores (the rule before the kernel used the
+    tensor cores). Per row and
+    layer a multiply-add per weight, a bias add and a ReLU per output; the
+    reduction one operation per row and channel. The kernel runs a leading
+    part of fewer than 8 channels (the 3-channel offset) on the CUDA cores
+    and every other product on the tensor cores in 3xTF32: three TF32
+    products for each f32 product."""
+    import torch
+
+    b, n, k, _ = parts[0].shape
+    rows = b * n * k
+    layers = [torch.cat(weights[0][0], dim=0)] + [w for w, _ in weights[1:]]
+    c_fma = parts[0].shape[-1] if parts[0].shape[-1] < 8 else 0
+    nbytes = (sum(p.numel() for p in parts) + out.numel() + sum(w.numel() + w.shape[1] for w in layers)) * 4.0
+    products = sum(2.0 * w.shape[0] * w.shape[1] for w in layers) * rows
+    fma_products = 2.0 * c_fma * layers[0].shape[1] * rows
+    rest = rows * (sum(2.0 * w.shape[1] for w in layers) + layers[-1].shape[1])
+    tf32 = bound(nbytes, fma_products + rest, (3 * (products - fma_products), PEAK_TF32_S))
+    return tf32, bound(nbytes, products + rest)
+
+
 def mlpmax_phase(calls) -> tuple[tuple, float, tuple]:
     """The mlp-max kernel against its plain version on each captured call:
-    within MLPMAX_TOL (abs + rel), two launches bit-equal. Returns (kernel,
-    plain ms summed over the calls, None), the largest error, the bound."""
+    within MLPMAX_TOL (abs + rel), two launches bit-equal; its time per call
+    beside the call's bound. Returns (kernel, plain ms summed over the
+    calls, None), the largest error, the bound (ms, by) summed over the
+    calls."""
     import torch
 
     from graspbalance_tpu_torch.ops.mlpmax import mlp_max_fused, mlp_max_fused_plain
 
-    max_err, nbytes, ops, t_k, t_p = 0.0, 0.0, 0.0, 0.0, 0.0
-    shapes = []
+    max_err, t_k, t_p, b_tf32, b_fp32 = 0.0, 0.0, 0.0, 0.0, 0.0
+    by = {"bytes": 0.0, "operations": 0.0}  # the summed bound by what binds each call
+    per_call = []
     for parts, weights, reduction in calls:
         run = functools.partial(mlp_max_fused, parts, weights, reduction=reduction)
         run_p = functools.partial(mlp_max_fused_plain, parts, weights, reduction=reduction)
@@ -513,22 +541,23 @@ def mlpmax_phase(calls) -> tuple[tuple, float, tuple]:
                 f"{[tuple(p.shape) for p in parts]}")
         require(torch.equal(got, run()), f"mlp-max kernel not deterministic at {tuple(parts[0].shape)}")
         max_err = max(max_err, float(err.max()))
-        t_k += cuda_ms(run, 3)
+        ms = cuda_ms(run, 3)
+        t_k += ms
         t_p += cuda_ms(run_p, 1)
+        tf32, fp32 = mlpmax_bound(parts, weights, got)
+        b_tf32 += tf32[0]
+        b_fp32 += fp32[0]
+        by[tf32[1]] += tf32[0]
         b, n, k, _ = parts[0].shape
-        layers = [torch.cat(weights[0][0], dim=0)] + [w for w, _ in weights[1:]]
-        rows = b * n * k
-        # per row and layer a multiply-add per weight, a bias add and a
-        # ReLU per output; the reduction one operation per row and channel
-        ops += rows * sum(2.0 * w.shape[0] * w.shape[1] + 2.0 * w.shape[1] for w in layers)
-        ops += rows * layers[-1].shape[1]
-        nbytes += sum(p.numel() for p in parts) * 4 + got.numel() * 4
-        nbytes += sum(w.numel() + w.shape[1] for w in layers) * 4
-        shapes.append(f"({n}, K={k}, {'+'.join(str(p.shape[-1]) for p in parts)}->"
-                      f"{'->'.join(str(w.shape[1]) for w in layers)})")
-    print(f"mlp-max: {len(calls)} calls at bs={BATCH}: {', '.join(shapes)}; max err {max_err:.3g} "
-          f"(within {MLPMAX_TOL} abs + rel), two launches bit-equal")
-    return (t_k, t_p, None), max_err, bound(nbytes, ops)
+        widths = [weights[0][0][0].shape[1]] + [w.shape[1] for w, _ in weights[1:]]
+        per_call.append(f"({b}, {n}, K={k}, {'+'.join(str(p.shape[-1]) for p in parts)}->"
+                        f"{'->'.join(map(str, widths))}) {ms:.4f} ms, bound {tf32[0]:.4f} ({tf32[1]})")
+    print(f"mlp-max: {len(calls)} calls at bs={BATCH}, max err {max_err:.3g} (within {MLPMAX_TOL} abs + rel), "
+          f"two launches bit-equal; per call (CUDA events, TF32 bound): " + "; ".join(per_call))
+    print(f"mlp-max per forward: {t_k:.4f} ms (before the redesign: {MLPMAX_BEFORE_MS} ms), plain {t_p:.4f} ms; "
+          f"bound {b_tf32:.4f} ms (products on the tensor cores in 3xTF32), {b_fp32:.4f} ms with every "
+          f"operation on the FP32 CUDA cores (the bound before the tensor-core redesign)")
+    return (t_k, t_p, None), max_err, (b_tf32, max(by, key=by.get))
 
 
 def fused_phase(model, dsn, cloud, smi: str):
@@ -576,8 +605,7 @@ def fused_phase(model, dsn, cloud, smi: str):
         b, n_r, n_h, m, k = idx.shape
         bounds["widthmlp_rel"] = widthmlp_bound(weights, b * m * n_h * k, rel.numel() * 4 + got.numel() * 4)
         print(f"width MLP (rel): {tuple(rel.shape)} -> {tuple(got.shape)} max err {errs['widthmlp_rel']:.3g} "
-              f"(max |out| {float(want.abs().max()):.3g}), two launches bit-equal; {times['widthmlp_rel'][0]:.4f} ms "
-              f"(before the redesign: {WIDTHMLP_REL_BEFORE_MS} ms)")
+              f"(max |out| {float(want.abs().max()):.3g}), two launches bit-equal; {times['widthmlp_rel'][0]:.4f} ms")
         del rel, got, want
 
         # the class-plane selection on the same seeds: the same indices as
@@ -857,6 +885,7 @@ def main() -> int:
     from graspbalance_tpu_torch.ops.gather import gather_points, group_points
     from graspbalance_tpu_torch.ops.knn import knn, knn_plain
     from graspbalance_tpu_torch.ops.multicyl import multi_cylinder_group, multi_cylinder_group_plain
+    from graspbalance_tpu_torch.ops.query import cylinder_thresholds, rot_planes
     from graspbalance_tpu_torch.ops.widthmlp import width_mlp_fused_rot, width_mlp_fused_rot_plain
     from graspbalance_tpu_torch.weights import init_random_
 
@@ -901,9 +930,24 @@ def main() -> int:
     require(torch.equal(idx_k, idx_p), f"query kernel != plain: {int((idx_k != idx_p).sum())} indices differ")
     rel_err = float((rel_k - rel_p).abs().max())
     require(rel_err <= REL_TOL, f"query rel error {rel_err} > {REL_TOL}")
+    require(torch.equal(rel_k, rel_p), f"query rel not bit-equal to the plain version (max err {rel_err})")
+    require(torch.equal(multi_cylinder_group(*qargs)[0], idx_k), "query indices differ between the two modes")
     hits = idx_k[..., 1:] != idx_k[..., :1]
-    print(f"query: {idx_k.shape} idx exact, rel max err {rel_err:.3g}; "
-          f"share of slots past the first that differ from it {float(hits.float().mean()):.3f}")
+    # what the query's cull can skip on these scenes: the points in the union
+    # of the cylinders per seed, the 32-point chunks holding one, and the
+    # seeds whose smallest cylinder fills (its k-th slot is not the first)
+    r2, hmin32, hm = cylinder_thresholds(wg.radii, wg.hmin, wg.hmax_list)
+    xr, yr, zr = rot_planes(cloud, seeds, rot)
+    union = (xr > hmin32) & (yr * yr + zr * zr < max(r2)) & (xr < max(hm))
+    chunk_share = float(union.reshape(BATCH, m, -1, 32).any(dim=-1).float().mean())
+    smallest = min(range(len(r2)), key=lambda c: (r2[c], hm[c]))
+    fills = idx_k.flatten(1, 2)[:, smallest, :, -1] != idx_k.flatten(1, 2)[:, smallest, :, 0]
+    del xr, yr, zr
+    print(f"query: {idx_k.shape} idx and rel bit-equal to the plain version in both modes; "
+          f"share of slots past the first that differ from it {float(hits.float().mean()):.3f}; the cylinders' "
+          f"union holds {float(union.sum(dim=-1).float().mean()):.1f} points a seed, {chunk_share:.3f} of the "
+          f"32-point chunks; the smallest cylinder fills for {float(fills.float().mean()):.3f} of the seeds")
+    del union
 
     b, n_r, n_h, _, k = idx_k.shape
     grouped = group_points(
@@ -941,11 +985,12 @@ def main() -> int:
 
     fps_floor_ms = cuda_ms(fps_chain, 5)
     del planes, dist0, chain_out
-    print(f"FPS ({BATCH}, {NUM_POINTS}) -> {n_fps}: {times['fps'][0]:.4f} ms (before the redesign: {FPS_BEFORE_MS} "
-          f"ms), {times['fps'][0] / (n_fps - 1) * 1e3:.3f} us per step; latency floor (the step chain without the "
+    print(f"FPS ({BATCH}, {NUM_POINTS}) -> {n_fps}: {times['fps'][0]:.4f} ms, {times['fps'][0] / (n_fps - 1) * 1e3:.3f} us per step; latency floor (the step chain without the "
           f"distance work) {fps_floor_ms:.4f} ms, {fps_floor_ms / (n_fps - 1) * 1e3:.3f} us per step")
-    print(f"width MLP {tuple(grouped.shape)}: {times['widthmlp'][0]:.4f} ms (before the redesign: "
-          f"{WIDTHMLP_BEFORE_MS} ms)")
+    print(f"width MLP {tuple(grouped.shape)}: {times['widthmlp'][0]:.4f} ms")
+    multicyl_rel_ms = cuda_ms(lambda: multi_cylinder_group(*qargs, emit_rel=True), 5)
+    print(f"query {tuple(idx_k.shape)}: {times['multicyl'][0]:.4f} ms indices only, {multicyl_rel_ms:.4f} ms with "
+          f"the gripper-frame coordinates (before the redesign: {MULTICYL_BEFORE_MS} ms indices only)")
 
     # least work of each main-path kernel on these inputs
     n_in = cloud.numel() * 4

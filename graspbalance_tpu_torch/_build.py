@@ -42,7 +42,7 @@ _SIGNATURES = {
     # name: argument types; every entry point returns a cudaError_t as int
     "gb_fps": (_P, _P, _P, _I, _I, _I, _P),
     "gb_fps_chain": (_P, _P, _P, _I, _I, _I, _P),
-    "gb_multicyl": (_P, _P, _P, _P, _P, ctypes.c_float, _I, _P, _P, _I, _I, _I, _I, _P),
+    "gb_multicyl": (_P, _P, _P, _P, _P, ctypes.c_float, _I, _I, _P, _P, _I, _I, _I, _I, _P),
     "gb_widthmlp": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "gb_knn": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "gb_fps_masked": (_P, _P, _P, _P, _I, _I, _I, _P),

@@ -1,8 +1,10 @@
 """k-nearest-neighbour ops (port of graspbalance_tpu/ops/knn.py): exact
 ``three_nn`` and exact ``knn``. Ties go to the lower index.
 
-``knn`` launches the CUDA kernel (``csrc/knn.cu``) on CUDA tensors and runs
-``knn_plain`` on CPU tensors.
+``knn`` at k <= 32 launches the CUDA kernel (``csrc/knn.cu``) on CUDA
+tensors and runs ``knn_plain`` on CPU tensors. At k > 32 it runs
+``knn_sorted`` on either device, as the JAX ``knn`` runs ``lax.top_k``
+there and no kernel.
 """
 
 from __future__ import annotations
@@ -11,7 +13,7 @@ import torch
 
 from graspbalance_tpu_torch import _build
 
-MAX_K = 32  # the kernel keeps at most 32 candidates per lane
+MAX_K = 32  # the kernel keeps at most 32 candidates per lane; larger k sorts
 
 
 def _pairwise_d2(query: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
@@ -56,19 +58,34 @@ def knn_plain(ref: torch.Tensor, query: torch.Tensor, k: int, *, chunk: int = 10
     return torch.cat([o[0] for o in outs], dim=1), torch.cat([o[1] for o in outs], dim=1)
 
 
+def knn_sorted(ref: torch.Tensor, query: torch.Tensor, k: int, *, chunk: int = 1024):
+    """``knn`` for any k: a stable ascending sort of each query's distances,
+    the first k kept (ties to the lower index, as ``lax.top_k`` keeps them),
+    over chunks of queries."""
+    dists, idxs = [], []
+    for lo in range(0, query.shape[1], chunk):
+        d2, i = torch.sort(_pairwise_d2(query[:, lo : lo + chunk], ref), dim=-1, stable=True)
+        dists.append(torch.sqrt(torch.clamp(d2[..., :k], min=0.0)))
+        idxs.append(i[..., :k].to(torch.int32))
+    return torch.cat(dists, dim=1), torch.cat(idxs, dim=1)
+
+
 def knn(ref: torch.Tensor, query: torch.Tensor, k: int, *, method: str = "exact"):
     """k nearest reference points per query: ref (B, R, 3), query (B, Q, 3)
     -> (dist (B, Q, k) euclidean ascending, idx (B, Q, k) int32).
 
-    Only ``method='exact'`` is ported; the JAX package's TPU 'approx' mode
-    has no counterpart here."""
+    1 <= k <= R. k <= 32 runs the kernel on CUDA tensors; k > 32 runs
+    ``knn_sorted`` on both devices. Only ``method='exact'`` is ported; the
+    JAX package's TPU 'approx' mode has no counterpart here."""
     if method != "exact":
         raise ValueError(f"only method='exact' is ported, got {method!r}")
     b, r, _ = ref.shape
     if query.ndim != 3 or query.shape[0] != b or query.shape[-1] != 3 or ref.shape[-1] != 3:
         raise ValueError(f"need ref (B, R, 3), query (B, Q, 3); got {tuple(ref.shape)}, {tuple(query.shape)}")
-    if not 1 <= k <= min(MAX_K, r):
-        raise ValueError(f"knn takes 1 <= k <= min({MAX_K}, R={r}), got k={k}")
+    if not 1 <= k <= r:
+        raise ValueError(f"knn takes 1 <= k <= R={r}, got k={k}")
+    if k > MAX_K:
+        return knn_sorted(ref, query, k)
     if ref.device.type == "cpu":
         return knn_plain(ref, query, k)
     _build.require_cuda("ref", ref, torch.float32, 3)

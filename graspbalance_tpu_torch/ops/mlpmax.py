@@ -110,6 +110,7 @@ def mlp_max_fused(parts, weights, *, reduction: str = "max") -> torch.Tensor:
     for t in (*ws, *bs):
         if t.device != parts[0].device:
             raise ValueError(f"weights on {t.device}, parts on {parts[0].device}")
+    ws = [w if w.data_ptr() % 16 == 0 else w.clone() for w in ws]  # the kernel copies 16-byte rows
     out = torch.empty((b, n, widths[-1]), dtype=torch.float32, device=parts[0].device)
     if out.numel() == 0:
         return out

@@ -110,7 +110,7 @@ def multi_cylinder_group(
     with torch.cuda.device(cloud.device):
         err = lib.gb_multicyl(
             planes.data_ptr(), centers.data_ptr(), rot.data_ptr(),
-            r2_arr, hm_arr, hmin32, n_r * n_h,
+            r2_arr, hm_arr, hmin32, n_r * n_h, n_h,
             idx.data_ptr(), rel.data_ptr() if rel is not None else None,
             b, n, m, nsample, _build.stream_of(cloud),
         )

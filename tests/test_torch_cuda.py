@@ -1,14 +1,21 @@
 """The CUDA kernels against their plain PyTorch versions on the card, at
 edge cases the main path's shapes do not reach: clouds whose size is not a
 multiple of the block, exact distance ties, near-origin points, seeds with
-no cylinder hit, fewer than K hits, duplicate kNN references, masked-FPS
+no cylinder hit, fewer than K hits, the cylinder query walked by several
+warps per seed (a dense cloud where every combo fills in the first chunks,
+hits only at the end of the cloud, N of 1, 31, 33 and off the warps' round,
+unsorted radii and depths, nsample 1 and 100), duplicate kNN references, kNN
+beyond the kernel's k = 32 (a stable sort, no launch), masked-FPS
 rows with no valid point, ragged grasp and point counts for the collision
 counts, and for the scatter-add (the gather backward) duplicate and dropped
 rows, destination counts and channel counts off the block's tile, fewer rows
 than one sort tile, the training step's gather shapes, more destinations
 than one histogram block holds, hot destinations at and across the sum
 chunk's length, and unaligned rows; for the fused group MLP + reduction every K
-it takes, point counts off the tile and every reduction; for the width MLP
+it takes, point counts off the tile and every reduction, and on its tensor
+cores B = 1, N off the 128-row tile's points, one part and two (on the CUDA
+cores and the tensor cores), the widest layer, four layers, channels off
+the 16-byte copies and an unaligned part, within 1e-4 abs + rel; for the width MLP
 on gripper-frame coordinates an odd seed count; for the class-plane
 selection rows with no hit and with fewer hits than k, and row lengths off
 the warp's 32; for the table gather non-square tables on both axes, tables past
@@ -178,6 +185,54 @@ def test_multicyl_kernel_edge_cases(dev, rng, nsample):
     torch.testing.assert_close(idx_only, idx, atol=0, rtol=0)
 
 
+def _ball(rng, n, radius):
+    """n points uniformly inside a ball of ``radius`` about the origin."""
+    v = rng.standard_normal((n, 3))
+    v *= (rng.random((n, 1)) ** (1 / 3)) * radius / np.linalg.norm(v, axis=1, keepdims=True)
+    return v.astype(np.float32)
+
+
+@pytest.mark.parametrize("nsample", [1, 100])
+@pytest.mark.parametrize(
+    "case", ["dense_first_segment", "last_segment_only", "n1", "n31", "n33", "n4001", "unsorted_combos"]
+)
+def test_multicyl_kernel_segments(dev, rng, case, nsample):
+    """The cylinder query split over several warps per seed: a dense cloud
+    where every combo fills within the first segment (a ball inside the
+    smallest cylinder for any rotation), hits only in the last segment, N of
+    1, 31, 33 and off the segments' size, unsorted radii and depths; the
+    last seed of each batch row sees no hit. idx and rel bit-equal to the
+    plain version in both modes."""
+    b, m, radii, hmaxs = 2, 9, RADII, HMAXS
+    if case == "dense_first_segment":
+        cloud = np.stack([_ball(rng, 3001, 0.005) for _ in range(b)])
+        centers = np.zeros((b, m, 3), np.float32)
+    elif case == "last_segment_only":
+        cloud = (rng.random((b, 4000, 3)) + 10.0).astype(np.float32)
+        cloud[:, -50:] = np.stack([_ball(rng, 50, 0.01) for _ in range(b)])
+        centers = np.zeros((b, m, 3), np.float32)
+    else:
+        n = {"n1": 1, "n31": 31, "n33": 33, "n4001": 4001, "unsorted_combos": 3001}[case]
+        cloud = ((rng.random((b, n, 3)) - 0.5) * 0.1).astype(np.float32)
+        centers = np.take_along_axis(cloud, rng.integers(0, n, size=(b, m))[..., None], axis=1)
+        if case == "unsorted_combos":
+            radii, hmaxs = (0.06, 0.02, 0.08, 0.04), (0.03, 0.01, 0.04, 0.02)
+    centers = centers.copy()
+    centers[:, -1] = 50.0  # no hit in any combo
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (cloud, centers, _rotations(rng, (b, m)))]
+    args += [radii, HMIN, hmaxs, nsample]
+    before = _build.launches["multicyl"]
+    idx, rel = multi_cylinder_group(*args, emit_rel=True)
+    assert _build.launches["multicyl"] == before + 1
+    idx_p, rel_p = multi_cylinder_group_plain(*args, emit_rel=True)
+    assert torch.equal(idx, idx_p) and torch.equal(rel, rel_p)
+    assert bool((idx[:, :, :, -1] == 0).all())
+    idx_only, none = multi_cylinder_group(*args)
+    assert none is None and torch.equal(idx_only, idx)
+    if case == "dense_first_segment":  # every point hits every combo: the first nsample points
+        assert bool((idx[:, :, :, :-1] == torch.arange(nsample, device=dev, dtype=torch.int32)).all())
+
+
 def test_multicyl_kernel_fewer_combos(dev, rng):
     cloud = torch.from_numpy((rng.random((1, 500, 3)) - 0.5).astype(np.float32) * 0.3).to(dev)
     centers = cloud[:, :20].contiguous()
@@ -235,10 +290,23 @@ def test_knn_kernel_ties(dev, rng):
     torch.testing.assert_close(dist, dist_p, atol=0, rtol=0)
 
 
+def test_knn_beyond_the_kernel(dev, rng):
+    """k = 40 > 32 sorts on the card (no kernel launch), as the JAX knn
+    takes lax.top_k there; the same answer as the argmin passes."""
+    query = torch.from_numpy(rng.standard_normal((2, 300, 3)).astype(np.float32)).to(dev)
+    ref = torch.from_numpy(rng.standard_normal((2, 1000, 3)).astype(np.float32)).to(dev)
+    before = _build.launches["knn"]
+    dist, idx = knn(ref, query, 40)
+    assert _build.launches["knn"] == before
+    dist_p, idx_p = knn_plain(ref, query, 40)
+    torch.testing.assert_close(idx, idx_p, atol=0, rtol=0)
+    torch.testing.assert_close(dist, dist_p, atol=0, rtol=0)
+
+
 def test_knn_kernel_refuses_what_it_cannot_take(dev):
     pts = torch.zeros((1, 40, 3), device=dev)
     with pytest.raises(ValueError, match="k"):
-        knn(pts, pts, 33)
+        knn(pts, pts, 41)
     with pytest.raises(ValueError, match="k"):
         knn(pts[:, :8], pts, 16)
     with pytest.raises(ValueError, match="float32"):
@@ -406,6 +474,45 @@ def test_mlpmax_kernel_shapes(dev, rng, reduction, k, n, c_parts, widths):
     want = mlp_max_fused_plain(parts, weights, reduction=reduction)
     assert got.shape == (2, n, widths[-1])
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    assert torch.equal(got, mlp_max_fused(parts, weights, reduction=reduction))
+
+
+@pytest.mark.parametrize("reduction", ["max", "mean", "sum"])
+@pytest.mark.parametrize(
+    "b,k,n,c_parts,widths,unaligned",
+    [
+        (1, 64, 3, (3,), (64, 64, 128), False),  # sa1's widths, N off the tile's 2 points
+        (1, 32, 1027, (3, 256), (256,), False),  # the widest layer, 259 -> 256
+        (2, 16, 515, (3, 256), (128, 128, 256), False),  # sa3 / sa4
+        (1, 8, 17, (3, 128), (128,), False),  # 16 points a tile
+        (2, 16, 40, (3, 32), (64, 64, 128, 256), False),  # four layers
+        (1, 32, 9, (64,), (128,), False),  # one part, all on the tensor cores
+        (2, 16, 11, (16, 40), (96,), False),  # two parts on the tensor cores
+        (1, 64, 5, (3, 37), (64,), False),  # channels off the 16-byte copies
+        (1, 16, 33, (3, 128), (128,), True),  # part b at an odd offset
+    ],
+)
+def test_mlpmax_kernel_tiles(dev, rng, reduction, b, k, n, c_parts, widths, unaligned):
+    """The tensor-core mlp-max kernel at its tile's edges (128 grouped rows):
+    B = 1, N off the tile's points, one and two parts, the widest layer and
+    four layers, within 1e-4 abs + rel of the plain version (3xTF32 against
+    the plain f32 matmuls) and two launches bit-equal."""
+    parts = []
+    for c in c_parts:
+        x = rng.standard_normal(b * n * k * c + 1).astype(np.float32)
+        t = torch.from_numpy(x).to(dev)
+        parts.append(t[1:].view(b, n, k, c) if unaligned and c > 3 else t[:-1].view(b, n, k, c))
+    cin = (sum(c_parts),) + widths[:-1]
+    ws = [torch.from_numpy((rng.standard_normal((i, o)) / np.sqrt(i)).astype(np.float32)).to(dev)
+          for i, o in zip(cin, widths)]
+    bs = [torch.from_numpy((rng.standard_normal(o) * 0.1).astype(np.float32)).to(dev) for o in widths]
+    weights = ((tuple(ws[0].split(list(c_parts), dim=0)), bs[0]), *zip(ws[1:], bs[1:]))
+    before = _build.launches["mlpmax"]
+    got = mlp_max_fused(parts, weights, reduction=reduction)
+    assert _build.launches["mlpmax"] == before + 1
+    want = mlp_max_fused_plain(parts, weights, reduction=reduction)
+    assert got.shape == (b, n, widths[-1])
+    assert bool(((got - want).abs() <= 1e-4 * (1.0 + want.abs())).all()), float((got - want).abs().max())
     assert torch.equal(got, mlp_max_fused(parts, weights, reduction=reduction))
 
 

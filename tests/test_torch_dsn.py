@@ -90,6 +90,31 @@ def test_knn_tie_order():
     assert np.all(idx.numpy()[0, 0, :3] == [0, 1, 2])
 
 
+@pytest.mark.parametrize("b,q,r,k", [(2, 70, 128, 33), (1, 300, 500, 40), (2, 129, 1100, 64)])
+def test_knn_beyond_the_kernel_matches_jax(b, q, r, k):
+    """k > 32: the JAX knn takes lax.top_k, the port a stable sort."""
+    rng = np.random.default_rng(k)
+    query = rng.standard_normal((b, q, 3)).astype(np.float32)
+    ref = rng.standard_normal((b, r, 3)).astype(np.float32)
+    want_d, want_i = j_knn(jnp.asarray(ref), jnp.asarray(query), k)
+    dist, idx = knn(_t(ref), _t(query), k)
+    assert idx.dtype == torch.int32 and dist.shape == (b, q, k)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(want_i))
+    np.testing.assert_allclose(dist.numpy(), np.asarray(want_d), rtol=1e-6, atol=1e-7)
+
+
+def test_knn_beyond_the_kernel_tie_order():
+    """k = 40 on points each present three times: the lower index wins."""
+    base = np.random.default_rng(4).standard_normal((2, 50, 3)).astype(np.float32)
+    pts = np.repeat(base, 3, axis=1)
+    want_d, want_i = j_knn(jnp.asarray(pts), jnp.asarray(pts), 40)
+    dist, idx = knn(_t(pts), _t(pts), 40)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(want_i))
+    np.testing.assert_allclose(dist.numpy(), np.asarray(want_d), rtol=1e-6, atol=1e-7)
+    assert np.all(idx.numpy()[:, ::3, 0] == np.arange(0, 150, 3))
+    assert np.all(np.diff(idx.numpy()[..., :3], axis=-1) == 1)
+
+
 def test_knn_refuses_what_it_cannot_take():
     pts = torch.zeros((1, 10, 3))
     with pytest.raises(ValueError):

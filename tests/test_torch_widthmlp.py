@@ -2,12 +2,15 @@
 the JAX package's Pallas kernel width_mlp_fused_rot in interpret mode, with
 the same BN-folded weights (random, non-trivial BN statistics); and the
 error model of the CUDA kernel's arithmetic, 3xTF32 on the tensor cores,
-emulated here on the CPU against a float64 MLP.
+emulated here on the CPU against a float64 MLP, at the width MLP's shapes
+and at the fused group MLP + reduction's.
 
 Tolerance: 1e-5 absolute and relative (f32; the products are summed in
 another order, and layer 0's rotation fold is formed by broadcast sums on
 one side and an einsum on the other). The 3xTF32 emulation within 1e-5 of
-float64, the kernel's own bound on the card; one TF32 pass exceeds it."""
+float64, the kernel's own bound on the card; one TF32 pass exceeds it. At
+the fused group MLP + reduction's shapes the same within its 1e-4 abs +
+rel."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -74,6 +77,42 @@ def test_width_mlp_3xtf32_error_model(rng, arith, within):
         assert float(want.abs().max()) > 0.1  # the comparison is not between near-zeros
         err = max(err, float((got.double() - want).abs().max()))
     assert (err <= TOL) == within, err
+
+
+MLPMAX_TOL = 1e-4  # abs + rel: the fused group MLP + reduction's bound on the card
+
+
+@pytest.mark.parametrize("arith,within", [("3xtf32", True), ("tf32", False)])
+@pytest.mark.parametrize("k", [16, 32])
+@pytest.mark.parametrize(
+    "c_feat,widths",
+    [(128, (128,)), (256, (256,)), (256, (128, 128, 256))],  # block1, block2-4, sa3/sa4
+)
+def test_mlpmax_3xtf32_error_model(rng, arith, within, k, c_feat, widths):
+    """The fused group MLP + max kernel's arithmetic at the backbone's
+    shapes, on 32 points of K grouped rows: layer 0's 3-channel offset part
+    in plain f32 (the CUDA cores), its feature part and every later layer
+    through ``matmul``, ReLU after each layer, the max over K. 3xTF32 stays
+    within 1e-4 abs + rel of float64, one TF32 pass does not."""
+    dp = torch.from_numpy(rng.standard_normal((32, k, 3)).astype(np.float32))
+    feat = torch.from_numpy(np.abs(rng.standard_normal((32, k, c_feat))).astype(np.float32))
+    cin = (3 + c_feat,) + widths[:-1]
+    ws = [torch.from_numpy((rng.standard_normal((i, o)) / np.sqrt(i)).astype(np.float32)) for i, o in zip(cin, widths)]
+    bs = [torch.from_numpy((rng.standard_normal(o) * 0.1).astype(np.float32)) for o in widths]
+    matmul = _matmul_3xtf32 if arith == "3xtf32" else _matmul_tf32
+
+    def run(mm, dtype):
+        w = [x.to(dtype) for x in ws]
+        h = torch.relu(dp.to(dtype) @ w[0][:3] + mm(feat.to(dtype), w[0][3:]) + bs[0].to(dtype))
+        for wl, bl in zip(w[1:], bs[1:]):
+            h = torch.relu(mm(h, wl) + bl.to(dtype))
+        return h.amax(dim=1)
+
+    got = run(matmul, torch.float32).double()
+    want = run(lambda a, b: a @ b, torch.float64)
+    assert float(want.abs().max()) > 0.5  # the comparison is not between near-zeros
+    err = float(((got - want).abs() / (1.0 + want.abs())).max())
+    assert (err <= MLPMAX_TOL) == within, err
 
 
 def _inputs(rng, b, s, r, h, k):
