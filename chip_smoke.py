@@ -22,8 +22,7 @@ the table-gather probe. Phases, each fatal on failure:
      coordinates bit-equal in both modes, width MLP (3xTF32 on the tensor
      cores) within 1e-4; time each, FPS also without its distance work (the
      latency floor of its step chain), the query in both modes (indices
-     only, and with the gripper-frame coordinates), printed beside its time
-     before its redesign;
+     only, and with the gripper-frame coordinates);
   4. run the forward + decode through the kernels, check that every kernel
      of that path was launched, run it again through the plain versions,
      and compare the valid masks (exact) and the decoded grasps (equal
@@ -33,11 +32,18 @@ the table-gather probe. Phases, each fatal on failure:
      calls);
   6. compare the serving path's kernels with their plain versions at its
      shapes: kNN on the DSN's (4, 2048) and (4, 1024) seed clouds (indices
-     exact, distances within 1e-6), the masked FPS on OBS's compacted slots
-     of the scenes' own objects (exact over the first max_needed slots), OBS
-     at num_seed=32 on a 6- and a 7-object scene, where the sparsest scene's
+     exact, distances within 1e-6; the share of the warp-select's rounds in
+     which a candidate passed the threshold, insertions per query, device
+     ms per launch), the masked FPS on OBS's compacted slots of the scenes'
+     own objects (exact over the first max_needed slots), OBS at
+     num_seed=32 on a 6- and a 7-object scene, where the sparsest scene's
      quota is not the largest (seeds exact), the collision counts of phase
-     4's grasps against the voxel-downsampled scenes (exact);
+     4's grasps against the voxel-downsampled scenes (exact; first the
+     shares of (32-grasp group, 32-point tile) and of (grasp, tile) pairs
+     that the cull removes, counted by its plain twin, then the kernel's own
+     count; K10's bound counts the pairs the cull keeps, printed beside the
+     bound of every pair; device kernels and device ms per call); K9 and K10 printed
+     beside their times before their redesign;
   7. run GraspInference without and with OBS through the kernels (every
      kernel of each path launched; all six on the OBS path) and through the
      plain versions: segment labels and OBS seeds exact, decoded grasps as
@@ -95,8 +101,9 @@ select query; the probe phase for the table gather), its error against the
 plain version, its time, the plain version's, the card's least time for the
 work (FPS's rows also the measured latency floor of its step chain) and,
 where one PyTorch call computes the same function, that call's time; the
-rows of the kernels redesigned last (the cylinder query and the mlp-max) are
-marked "redesigned" (their earlier times are printed in phases 3 and 10); and as the last
+rows of the kernels redesigned last (kNN and the collision counts) are
+marked "redesigned", with their device ms (their earlier times are printed
+in phase 6); and as the last
 line {"ok": true, "device": {...}}. Without CUDA it exits non-zero before
 any result. Imports nothing of JAX.
 """
@@ -139,13 +146,12 @@ FUSED_ROUNDS = 4  # alternating rounds of the default and the fused forward + de
 FUSED_ITERS = 5  # timed calls of each configuration per round
 PROBE_REPS = 20  # timed launches of the table gather and its yardsticks
 # the kernels redesigned last, marked in the kernel table, and their times
-# before (commit ebc1ec2; NVIDIA H100 80GB HBM3, 700.00 W, this script),
-# printed beside the new ones in phases 3 and 10: the cylinder query at the
-# main path's shapes (indices only), the mlp-max summed over one fused
-# forward's 19 calls
-REDESIGNED = ("multicyl", "mlpmax")
-MULTICYL_BEFORE_MS = 1.328
-MLPMAX_BEFORE_MS = 10.697
+# before (commit 599a42e; NVIDIA H100 80GB HBM3, 700.00 W, this script),
+# printed beside the new ones in phase 6: kNN summed over the DSN's two
+# stages, the collision counts of phase 4's grasps
+REDESIGNED = ("knn", "collision")
+KNN_BEFORE_MS = 0.228
+COLLISION_BEFORE_MS = 0.319
 OBS_SMALL_SEEDS = 32  # phase 6's extra OBS check: a 6- and a 7-object scene
 # the kernels each path must launch
 PATH_KERNELS = {
@@ -554,7 +560,7 @@ def mlpmax_phase(calls) -> tuple[tuple, float, tuple]:
                         f"{'->'.join(map(str, widths))}) {ms:.4f} ms, bound {tf32[0]:.4f} ({tf32[1]})")
     print(f"mlp-max: {len(calls)} calls at bs={BATCH}, max err {max_err:.3g} (within {MLPMAX_TOL} abs + rel), "
           f"two launches bit-equal; per call (CUDA events, TF32 bound): " + "; ".join(per_call))
-    print(f"mlp-max per forward: {t_k:.4f} ms (before the redesign: {MLPMAX_BEFORE_MS} ms), plain {t_p:.4f} ms; "
+    print(f"mlp-max per forward: {t_k:.4f} ms, plain {t_p:.4f} ms; "
           f"bound {b_tf32:.4f} ms (products on the tensor cores in 3xTF32), {b_fp32:.4f} ms with every "
           f"operation on the FP32 CUDA cores (the bound before the tensor-core redesign)")
     return (t_k, t_p, None), max_err, (b_tf32, max(by, key=by.get))
@@ -871,9 +877,14 @@ def main() -> int:
     from graspbalance_tpu_torch.models import DSN, GraspBalance, pred_decode
     from graspbalance_tpu_torch.ops.collision import (
         N_PARAMS,
+        TILE,
         collision_counts,
         collision_counts_plain,
+        collision_cull_stats,
+        cull_share,
         pack_grasp_params,
+        tile_bounds,
+        tile_may_hit,
     )
     from graspbalance_tpu_torch.ops.fps import (
         furthest_point_sample,
@@ -883,7 +894,7 @@ def main() -> int:
         initial_distances,
     )
     from graspbalance_tpu_torch.ops.gather import gather_points, group_points
-    from graspbalance_tpu_torch.ops.knn import knn, knn_plain
+    from graspbalance_tpu_torch.ops.knn import knn, knn_plain, knn_round_stats
     from graspbalance_tpu_torch.ops.multicyl import multi_cylinder_group, multi_cylinder_group_plain
     from graspbalance_tpu_torch.ops.query import cylinder_thresholds, rot_planes
     from graspbalance_tpu_torch.ops.widthmlp import width_mlp_fused_rot, width_mlp_fused_rot_plain
@@ -990,7 +1001,7 @@ def main() -> int:
     print(f"width MLP {tuple(grouped.shape)}: {times['widthmlp'][0]:.4f} ms")
     multicyl_rel_ms = cuda_ms(lambda: multi_cylinder_group(*qargs, emit_rel=True), 5)
     print(f"query {tuple(idx_k.shape)}: {times['multicyl'][0]:.4f} ms indices only, {multicyl_rel_ms:.4f} ms with "
-          f"the gripper-frame coordinates (before the redesign: {MULTICYL_BEFORE_MS} ms indices only)")
+          f"the gripper-frame coordinates")
 
     # least work of each main-path kernel on these inputs
     n_in = cloud.numel() * 4
@@ -1039,6 +1050,7 @@ def main() -> int:
     require(bool((seg_labels.amax(dim=1) > 0).all()),
             f"the DSN from seed {DSN_SEED} marks no foreground in some scene: OBS would see no object")
     print(f"DSN weights from seed {DSN_SEED}: {seg_labels.amax(dim=1).tolist()} clusters per scene")
+    device_ms = {}  # kNN and the collision counts: device ms per call (torch.profiler)
     with torch.no_grad():
         knn_errs, knn_shapes = [], []
         xyz_dsn = gather_points(cloud, fps_k[:, : dsn.pt_stages[0][0]]).contiguous()
@@ -1059,13 +1071,25 @@ def main() -> int:
                 for x in knn_shapes),
         )
         errs["knn"] = max(knn_errs)
+        # the warp-select's work on each stage, and its device time per launch
+        knn_work = []
+        for x in knn_shapes:
+            (_, i_s), (rounds, passed, inserted) = knn_round_stats(x, x, kk)
+            require(torch.equal(i_s, knn_plain(x, x, kk)[1]), f"kNN (counting) != plain at {tuple(x.shape)}")
+            per_call = device_ms_by_kernel(lambda x=x: knn(x, x, kk), 5)
+            knn_work.append(f"{tuple(x.shape)}: {passed / rounds:.3f} of the rounds after the first had a "
+                            f"candidate below the threshold, {inserted / (x.shape[0] * x.shape[1]):.1f} insertions "
+                            f"a query, device {sum(ms for ms, _ in per_call.values()):.4f} ms in "
+                            f"{sum(c for _, c in per_call.values()):.0f} kernel(s)")
+            device_ms["knn"] = device_ms.get("knn", 0.0) + sum(ms for ms, _ in per_call.values())
         # 3 sub, 3 mul, 2 add and one comparison per (query, reference) pair
         bounds["knn"] = bound(
             sum(x.numel() * 4 + x.shape[0] * x.shape[1] * kk * 8 for x in knn_shapes),
             sum(x.shape[0] * x.shape[1] ** 2 * 9 for x in knn_shapes),
         )
         print(f"kNN: {[tuple(x.shape) for x in knn_shapes]} k={kk} idx exact, "
-              f"dist max err {errs['knn']:.3g}")
+              f"dist max err {errs['knn']:.3g}; {times['knn'][0]:.4f} ms both stages (before the redesign: "
+              f"{KNN_BEFORE_MS} ms), cdist + topk {times['knn'][2]:.4f} ms; " + "; ".join(knn_work))
 
         # OBS's masked FPS on the compacted slots of the scenes' own objects
         o, fps_cap = MAX_OBJECTS, FPS_CAP
@@ -1109,10 +1133,21 @@ def main() -> int:
         print(f"OBS at num_seed={OBS_SMALL_SEEDS}, a 6- and a 7-object scene: max_needed={small_needed}, seeds exact "
               "against the plain version")
 
-        # the collision counts of phase 4's grasps on the downsampled scenes
+        # the collision counts of phase 4's grasps on the downsampled scenes;
+        # first what the cull removes there, counted by its plain twin
         s_ds, s_valid = voxel_downsample_fixed(cloud)
         params = pack_grasp_params(grasps, 0.03, 0.01, 0.06)
+        twin_kept, twin_pairs = cull_share(s_ds, s_valid, params)
+        t_lo, t_hi, t_any = tile_bounds(s_ds, s_valid)
+        grasp_tiles = int((tile_may_hit(params, t_lo, t_hi) & t_any.unsqueeze(1)).sum())  # (grasp, tile) pairs kept
+        all_grasp_tiles = int(t_any.sum()) * params.shape[1]
+        print(f"collision cull (plain twin, before the kernel runs): {1 - twin_kept / twin_pairs:.4f} of the "
+              f"{twin_pairs} (32-grasp group, 32-point tile) pairs with a valid point removed, {twin_kept} kept; "
+              f"{1 - grasp_tiles / all_grasp_tiles:.4f} of the {all_grasp_tiles} (grasp, tile) pairs, "
+              f"{grasp_tiles} kept")
+        cc_s, cull_kernel = collision_cull_stats(s_ds, s_valid, params)
         cc_k = collision_counts(s_ds, s_valid, params)
+        require(torch.equal(cc_s, cc_k), "collision counts differ between the launches with and without counters")
         cc_p = collision_counts_plain(s_ds, s_valid, params)
         require(torch.equal(cc_k, cc_p), f"collision counts kernel != plain: {int((cc_k != cc_p).sum())} differ")
         errs["collision"] = float((cc_k - cc_p).abs().max())
@@ -1122,13 +1157,24 @@ def main() -> int:
             None,
         )
         n_vox = float(s_valid.sum())
-        # per (grasp, valid point): 18 operations for the gripper-frame
-        # point, 12 comparisons, 6 count updates
-        bounds["collision"] = bound(s_ds.numel() * 4 + s_valid.numel() + params.numel() * 4 + cc_k.numel() * 4,
-                                    n_vox * grasps.shape[1] * 36)
+        # per (grasp, point) of a kept (grasp, tile) pair: 18 operations for
+        # the gripper-frame point, 12 comparisons, 6 count updates; per
+        # (grasp, tile with a valid point) the 6 comparisons of the world-box
+        # test that skips the rest; beside it the bound of every (grasp,
+        # valid point) pair, the work before the cull
+        c_bytes = s_ds.numel() * 4 + s_valid.numel() + params.numel() * 4 + cc_k.numel() * 4
+        bounds["collision"] = bound(c_bytes, grasp_tiles * TILE * 36 + all_grasp_tiles * 6)
+        all_pairs = bound(c_bytes, n_vox * grasps.shape[1] * 36)
+        per_call = device_ms_by_kernel(lambda: collision_counts(s_ds, s_valid, params), 5)
+        device_ms["collision"] = sum(ms for ms, _ in per_call.values())
         print(f"collision counts: {BATCH} x {grasps.shape[1]} grasps x {int(n_vox)} valid voxels "
               f"(of {BATCH * NUM_POINTS} points; {N_PARAMS} params) exact; "
-              f"max overall count {int(cc_k[..., 4].max())}")
+              f"max overall count {int(cc_k[..., 4].max())}; the kernel kept {cull_kernel[0]} of "
+              f"{cull_kernel[1]} (group, tile) pairs; bound {bounds['collision'][0]:.5f} ms on the pairs the "
+              f"cull keeps ({all_pairs[0]:.5f} ms on every pair); "
+              f"{times['collision'][0]:.4f} ms (before the redesign: {COLLISION_BEFORE_MS} ms), device "
+              f"{device_ms['collision']:.4f} ms in {sum(c for _, c in per_call.values()):.0f} kernels per call ("
+              + ", ".join(f"{key[:40]} {ms:.4f}" for key, (ms, _) in per_call.items()) + ")")
 
     # 7. GraspInference without and with OBS, through the kernels and plain
     pipelines = {
@@ -1203,7 +1249,7 @@ def main() -> int:
             "bound_by": bounds[measured][1],
             "library_ms": times[measured][2],
             **({"latency_floor_ms": fps_floor_ms} if measured == "fps" else {}),
-            **({"redesigned": True} if measured in REDESIGNED else {}),
+            **({"redesigned": True, "device_ms": device_ms[measured]} if measured in REDESIGNED else {}),
         }
         for k_num, name, measured, source, replaces, path in KERNEL_TABLE
     ]

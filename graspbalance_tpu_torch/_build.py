@@ -44,9 +44,9 @@ _SIGNATURES = {
     "gb_fps_chain": (_P, _P, _P, _I, _I, _I, _P),
     "gb_multicyl": (_P, _P, _P, _P, _P, ctypes.c_float, _I, _I, _P, _P, _I, _I, _I, _I, _P),
     "gb_widthmlp": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "gb_knn": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "gb_knn": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "gb_fps_masked": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "gb_collision": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "gb_collision": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "gb_scatter_add": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "gb_mlpmax": (_P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _I, _I, _I, _P),
     "gb_widthmlp_rel": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

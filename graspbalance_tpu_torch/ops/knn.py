@@ -1,10 +1,10 @@
 """k-nearest-neighbour ops (port of graspbalance_tpu/ops/knn.py): exact
 ``three_nn`` and exact ``knn``. Ties go to the lower index.
 
-``knn`` at k <= 32 launches the CUDA kernel (``csrc/knn.cu``) on CUDA
-tensors and runs ``knn_plain`` on CPU tensors. At k > 32 it runs
-``knn_sorted`` on either device, as the JAX ``knn`` runs ``lax.top_k``
-there and no kernel.
+``knn`` at k <= 32 launches the CUDA kernel (``csrc/knn.cu``, a filtered
+warp-select) on CUDA tensors and runs ``knn_plain`` on CPU tensors. At
+k > 32 it runs ``knn_sorted`` on either device, as the JAX ``knn`` runs
+``lax.top_k`` there and no kernel.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ import torch
 
 from graspbalance_tpu_torch import _build
 
-MAX_K = 32  # the kernel keeps at most 32 candidates per lane; larger k sorts
+MAX_K = 32  # the kernel keeps a warp's best 32 keys, one a lane; larger k sorts
 
 
 def _pairwise_d2(query: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
@@ -88,17 +88,32 @@ def knn(ref: torch.Tensor, query: torch.Tensor, k: int, *, method: str = "exact"
         return knn_sorted(ref, query, k)
     if ref.device.type == "cpu":
         return knn_plain(ref, query, k)
+    return _launch(ref, query, k, None)
+
+
+def _launch(ref, query, k, stats):
     _build.require_cuda("ref", ref, torch.float32, 3)
     _build.require_cuda("query", query, torch.float32, 3)
+    b, r, _ = ref.shape
     q = query.shape[1]
-    planes = ref.transpose(1, 2).contiguous()  # (B, 3, R)
     dist = torch.empty((b, q, k), dtype=torch.float32, device=ref.device)
     idx = torch.empty((b, q, k), dtype=torch.int32, device=ref.device)
     lib = _build.library()
     with torch.cuda.device(ref.device):
         err = lib.gb_knn(
-            query.data_ptr(), planes.data_ptr(), dist.data_ptr(), idx.data_ptr(),
-            b, q, r, k, _build.stream_of(ref),
+            query.data_ptr(), ref.data_ptr(), dist.data_ptr(), idx.data_ptr(),
+            0 if stats is None else stats.data_ptr(), b, q, r, k, _build.stream_of(ref),
         )
     _build.check(err, "knn")
     return dist, idx
+
+
+def knn_round_stats(ref: torch.Tensor, query: torch.Tensor, k: int):
+    """The kernel on CUDA tensors (1 <= k <= 32), also counting its work:
+    (dist, idx) and (rounds after each query's first, rounds in which a
+    candidate passed the threshold, insertions), summed over the queries."""
+    if not 1 <= k <= min(MAX_K, ref.shape[1]):
+        raise ValueError(f"the kNN kernel takes 1 <= k <= min(32, R), got k={k}")
+    stats = torch.zeros(3, dtype=torch.int64, device=ref.device)
+    out = _launch(ref, query, k, stats)
+    return out, tuple(int(v) for v in stats.tolist())

@@ -4,12 +4,20 @@ multiple of the block, exact distance ties, near-origin points, seeds with
 no cylinder hit, fewer than K hits, the cylinder query walked by several
 warps per seed (a dense cloud where every combo fills in the first chunks,
 hits only at the end of the cloud, N of 1, 31, 33 and off the warps' round,
-unsorted radii and depths, nsample 1 and 100), duplicate kNN references, kNN
-beyond the kernel's k = 32 (a stable sort, no launch), masked-FPS
-rows with no valid point, ragged grasp and point counts for the collision
-counts, and for the scatter-add (the gather backward) duplicate and dropped
-rows, destination counts and channel counts off the block's tile, fewer rows
-than one sort tile, the training step's gather shapes, more destinations
+unsorted radii and depths, nsample 1 and 100), duplicate kNN references
+(every point 8 times on an integer grid at k = 1, 8, 16, 17, 31, 32),
+reference counts below a tile, off multiples of 32 and over several tiles,
+a single query, kNN beyond the kernel's k = 32 (a stable sort, no launch),
+masked-FPS rows with no valid point; for the collision counts ragged grasp
+and point counts, points on and within ulps of box faces, grasps whose
+boxes meet a tile's bounding box from either side on each axis, scenes in
+voxel order and in random order, an all-invalid scene and valid sets that
+are not a prefix, G = 1, 31, 33 and 1000, clouds below one tile,
+duplicated grasps, rotation columns that are not orthonormal, and the
+kernel's count of culled tiles against its plain twin; and for the
+scatter-add (the gather backward) duplicate and dropped rows, destination
+counts and channel counts off the block's tile, fewer rows than one sort
+tile, the training step's gather shapes, more destinations
 than one histogram block holds, hot destinations at and across the sum
 chunk's length, and unaligned rows; for the fused group MLP + reduction every K
 it takes, point counts off the tile and every reduction, and on its tensor
@@ -51,10 +59,16 @@ import pytest
 import torch
 
 from graspbalance_tpu_torch import _build
-from graspbalance_tpu_torch.eval.collision import collision_detect
+from graspbalance_tpu_torch.eval.collision import collision_detect, voxel_downsample_fixed
 from graspbalance_tpu_torch.eval.obs import object_balance_indices
 from graspbalance_tpu_torch.models.heads import MultiScaleWidthGrouping
-from graspbalance_tpu_torch.ops.collision import collision_counts, collision_counts_plain, pack_grasp_params
+from graspbalance_tpu_torch.ops.collision import (
+    collision_counts,
+    collision_counts_plain,
+    collision_cull_stats,
+    cull_share,
+    pack_grasp_params,
+)
 from graspbalance_tpu_torch.ops.gather import _flat_take, gather_points, group_points
 from graspbalance_tpu_torch.ops.fps import (
     furthest_point_sample,
@@ -290,6 +304,43 @@ def test_knn_kernel_ties(dev, rng):
     torch.testing.assert_close(dist, dist_p, atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("k", [1, 8, 16, 17, 31, 32])
+def test_knn_kernel_repeated_grid(dev, rng, k):
+    """Every point 8 times on an integer grid: ties everywhere, and most
+    rounds insert several candidates."""
+    base = rng.integers(-3, 4, size=(2, 150, 3)).astype(np.float32)
+    pts = torch.from_numpy(np.repeat(base, 8, axis=1)).to(dev)
+    query = pts[:, ::7].contiguous()
+    _check_knn(pts, query, k)
+
+
+@pytest.mark.parametrize("r", [20, 100, 1000, 2047, 2049, 5000])
+def test_knn_kernel_reference_counts(dev, rng, r):
+    """R below a tile of 2048 references, off multiples of 32, and over
+    several tiles."""
+    ref = torch.from_numpy(rng.standard_normal((2, r, 3)).astype(np.float32)).to(dev)
+    query = torch.from_numpy(rng.standard_normal((2, 77, 3)).astype(np.float32)).to(dev)
+    _check_knn(ref, query, min(16, r))
+
+
+def test_knn_kernel_single_query(dev, rng):
+    ref = torch.from_numpy(rng.standard_normal((3, 500, 3)).astype(np.float32)).to(dev)
+    _check_knn(ref, ref[:, 7:8].contiguous(), 16)
+
+
+def _check_knn(ref, query, k):
+    """One counted launch, idx and dist exactly the plain version's, and a
+    second launch bit-equal."""
+    before = _build.launches["knn"]
+    dist, idx = knn(ref, query, k)
+    assert _build.launches["knn"] == before + 1
+    dist_p, idx_p = knn_plain(ref, query, k)
+    torch.testing.assert_close(idx, idx_p, atol=0, rtol=0)
+    torch.testing.assert_close(dist, dist_p, atol=0, rtol=0)
+    dist2, idx2 = knn(ref, query, k)
+    assert torch.equal(dist, dist2) and torch.equal(idx, idx2)
+
+
 def test_knn_beyond_the_kernel(dev, rng):
     """k = 40 > 32 sorts on the card (no kernel launch), as the JAX knn
     takes lax.top_k there; the same answer as the argmin passes."""
@@ -363,6 +414,163 @@ def test_collision_kernel_ragged(dev, rng, n, g):
     coll, empty = collision_detect(points, grasps, scene_valid=valid, return_empty_grasp=True)
     coll_p, empty_p = collision_detect(points, grasps, scene_valid=valid, return_empty_grasp=True, plain=True)
     assert torch.equal(coll, coll_p) and torch.equal(empty, empty_p)
+
+
+def _check_collision(points, valid, params):
+    """One counted launch, equal to the plain counts; returns them."""
+    before = _build.launches["collision"]
+    got = collision_counts(points, valid, params)
+    assert _build.launches["collision"] == before + 1
+    torch.testing.assert_close(got, collision_counts_plain(points, valid, params), atol=0, rtol=0)
+    return got
+
+
+def _scene_rows(rng, b, g, points):
+    """Decoded-range grasps centred on points of the scene."""
+    rows = _grasps(rng, b, g)
+    pts = points.cpu().numpy()
+    rows[..., 13:16] = pts[np.arange(b)[:, None], rng.integers(0, pts.shape[1], (b, g))]
+    return rows
+
+
+def test_collision_kernel_on_box_faces(dev, rng):
+    """Points on every face of every grasp's boxes, and an ulp or two off."""
+    g = 48
+    rows = _grasps(rng, 1, g)
+    params = pack_grasp_params(torch.from_numpy(rows), 0.03, 0.01, 0.06)
+    m = params[0, :, :9].reshape(g, 3, 3).double()  # rows: the gripper axes
+    f = [params[0, :, c] for c in range(12, 20)]  # zlo zhi dep dfl dflw dflwa w2 w2fw
+    gx = torch.stack([f[2], f[3], f[4], f[5], (f[2] + f[5]) / 2], -1)
+    gy = torch.stack([-f[7], -f[6], f[6], f[7], torch.zeros_like(f[6])], -1)
+    gz = torch.stack([f[0], f[1], torch.zeros_like(f[0])], -1)
+    ix, iy, iz = torch.meshgrid(torch.arange(5), torch.arange(5), torch.arange(3), indexing="ij")
+    frame = torch.stack([gx[:, ix.flatten()], gy[:, iy.flatten()], gz[:, iz.flatten()]], -1).double()
+    world = params[0, :, None, 9:12].double() + torch.linalg.solve(m.unsqueeze(1), frame.unsqueeze(-1))[..., 0]
+    pts = world.float().reshape(1, -1, 3)
+    nudge = torch.from_numpy(rng.integers(-2, 3, pts.shape)).float()
+    pts = torch.nextafter(torch.nextafter(pts, pts + nudge), pts + nudge)
+    valid = torch.ones(pts.shape[:2], dtype=torch.bool)
+    counts = _check_collision(pts.to(dev), valid.to(dev), params.to(dev))
+    assert float(counts[..., 4].sum()) > 0
+
+
+def test_collision_kernel_grasps_touching_tiles(dev, rng):
+    """Grasps placed so that a box face meets a tile's bounding box from each
+    side, on each axis, then moved by up to 3 ulps either way."""
+    n = 256
+    points = torch.from_numpy(rng.uniform(-0.05, 0.05, (1, n, 3)).astype(np.float32))
+    valid = torch.ones((1, n), dtype=torch.bool)
+    tiles = points[0].reshape(-1, 32, 3)
+    lo, hi = tiles.amin(dim=1), tiles.amax(dim=1)
+    rows = []
+    for t in range(tiles.shape[0]):
+        for axis in range(3):
+            for side in range(2):
+                for ulps in range(-3, 4):
+                    row = np.zeros(17, np.float32)
+                    row[1], row[2], row[3] = 0.04, 0.02, 0.02
+                    row[4:13] = np.eye(3, dtype=np.float32).reshape(9)  # gripper frame = world
+                    center = ((lo[t] + hi[t]) / 2).numpy().copy()
+                    # faces in the gripper frame: x in (d - 0.1, d), |y| < w/2 + 0.01, |z| < h/2
+                    face = [(row[3] - 0.1, row[3]), (-(row[1] / 2 + 0.01), row[1] / 2 + 0.01),
+                            (-row[2] / 2, row[2] / 2)][axis]
+                    edge = float(hi[t, axis]) if side else float(lo[t, axis])
+                    c = np.float32(edge - face[0] if side else edge - face[1])
+                    for _ in range(abs(ulps)):
+                        c = np.nextafter(c, np.float32(np.inf if ulps > 0 else -np.inf))
+                    center[axis] = c
+                    row[13:16] = center
+                    rows.append(row)
+    grasps = torch.from_numpy(np.stack(rows))[None]
+    params = pack_grasp_params(grasps, 0.03, 0.01, 0.06)
+    _check_collision(points.to(dev), valid.to(dev), params.to(dev))
+
+
+@pytest.mark.parametrize("order", ["voxel", "random"])
+def test_collision_kernel_point_orders(dev, rng, order):
+    """The downsampled scene's lexicographic voxel order (tiles are thin
+    slabs in x) and a random order (tiles span the scene)."""
+    cloud = torch.from_numpy(rng.uniform(-0.3, 0.3, (2, 20000, 3)).astype(np.float32))
+    cloud[..., 2] = cloud[..., 2] * 0.1 + 0.45
+    points, valid = voxel_downsample_fixed(cloud.to(dev))
+    if order == "random":
+        perm = torch.from_numpy(rng.permutation(points.shape[1])).to(dev)
+        points, valid = points[:, perm].contiguous(), valid[:, perm].contiguous()
+    params = pack_grasp_params(torch.from_numpy(_scene_rows(rng, 2, 1024, points[:, :4000])).to(dev),
+                               0.03, 0.01, 0.06)
+    _check_collision(points, valid, params)
+
+
+@pytest.mark.parametrize("case", ["all_invalid", "not_a_prefix"])
+def test_collision_kernel_valid_sets(dev, rng, case):
+    points = torch.from_numpy(rng.uniform(-0.1, 0.1, (3, 3000, 3)).astype(np.float32)).to(dev)
+    valid = torch.from_numpy(rng.random((3, 3000)) > 0.5).to(dev)
+    valid[0] = False  # one scene with no valid point
+    if case == "all_invalid":
+        valid[:] = False
+    else:
+        valid[1, :1000] = False  # valid points only after an invalid head
+        valid[2, 1000:2000] = False  # and a hole in the middle
+    params = pack_grasp_params(torch.from_numpy(_scene_rows(rng, 3, 100, points)).to(dev), 0.03, 0.01, 0.06)
+    counts = _check_collision(points, valid, params)
+    assert not bool(counts[0].any())
+
+
+@pytest.mark.parametrize("g", [1, 31, 33, 1000])
+def test_collision_kernel_grasp_counts(dev, rng, g):
+    points = torch.from_numpy(rng.uniform(-0.1, 0.1, (2, 2000, 3)).astype(np.float32)).to(dev)
+    valid = torch.from_numpy(rng.random((2, 2000)) > 0.1).to(dev)
+    params = pack_grasp_params(torch.from_numpy(_scene_rows(rng, 2, g, points)).to(dev), 0.03, 0.01, 0.06)
+    _check_collision(points, valid, params)
+
+
+@pytest.mark.parametrize("n", [1, 5, 31])
+def test_collision_kernel_cloud_below_a_tile(dev, rng, n):
+    points = torch.from_numpy(rng.uniform(-0.02, 0.02, (2, n, 3)).astype(np.float32)).to(dev)
+    valid = torch.ones((2, n), dtype=torch.bool, device=dev)
+    params = pack_grasp_params(torch.from_numpy(_scene_rows(rng, 2, 40, points)).to(dev), 0.03, 0.01, 0.06)
+    _check_collision(points, valid, params)
+
+
+def test_collision_kernel_duplicated_grasps(dev, rng):
+    """Equal grasps (equal centers, ties in the ranking) each get the full
+    count, at their own index."""
+    points = torch.from_numpy(rng.uniform(-0.1, 0.1, (1, 4000, 3)).astype(np.float32)).to(dev)
+    valid = torch.ones((1, 4000), dtype=torch.bool, device=dev)
+    rows = _scene_rows(rng, 1, 64, points)
+    rows[0, 5:9] = rows[0, 4]
+    rows[0, 32:] = rows[0, :32]
+    params = pack_grasp_params(torch.from_numpy(rows).to(dev), 0.03, 0.01, 0.06)
+    counts = _check_collision(points, valid, params)
+    assert torch.equal(counts[0, 32:], counts[0, :32])
+
+
+def test_collision_kernel_non_orthonormal_rotations(dev, rng):
+    """Scaled, sheared and singular rotation columns: the world bounds step
+    aside and the gripper-frame test still holds."""
+    points = torch.from_numpy(rng.uniform(-0.1, 0.1, (1, 3000, 3)).astype(np.float32)).to(dev)
+    valid = torch.ones((1, 3000), dtype=torch.bool, device=dev)
+    rows = _scene_rows(rng, 1, 96, points)
+    rot = rows[0, :, 4:13].reshape(96, 3, 3)
+    rot[:32] *= rng.uniform(0.3, 3.0, (32, 1, 3)).astype(np.float32)  # scaled columns
+    rot[32:64, 0] += rng.normal(0.0, 0.5, (32, 3)).astype(np.float32)  # sheared
+    rot[64:, :, 2] = rot[64:, :, 1]  # singular
+    rows[0, :, 4:13] = rot.reshape(96, 9)
+    params = pack_grasp_params(torch.from_numpy(rows).to(dev), 0.03, 0.01, 0.06)
+    _check_collision(points, valid, params)
+
+
+def test_collision_kernel_culls_as_its_twin(dev, rng):
+    """The kernel's count of kept (group, tile) pairs is the twin's
+    (ops/collision.py:cull_share), and culling leaves the counts exact."""
+    cloud = torch.from_numpy(rng.uniform(-0.3, 0.3, (2, 20000, 3)).astype(np.float32))
+    points, valid = voxel_downsample_fixed(cloud.to(dev))
+    params = pack_grasp_params(torch.from_numpy(_scene_rows(rng, 2, 512, points[:, :5000])).to(dev),
+                               0.03, 0.01, 0.06)
+    counts, stats = collision_cull_stats(points, valid, params)
+    torch.testing.assert_close(counts, collision_counts_plain(points, valid, params), atol=0, rtol=0)
+    assert stats == cull_share(points, valid, params)
+    assert stats[0] < stats[1]
 
 
 def _check_scatter(idx, ct_int, ct, n):

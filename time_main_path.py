@@ -13,6 +13,12 @@ and max ms per scene over the timed calls), one summary line per tree (the
 runs' clouds/s and p50s, the median and the interquartile distance of the
 run p50s, and the median's ratio to the first tree's), and, for two trees,
 the rounds in which the second tree's p50 is lower than the first's.
+
+With ``--collision`` each run times the collision counts instead, on the
+decoded grasps of those scenes and the voxel-downsampled clouds (the
+collision filter's inputs): ms per ``collision_counts`` call by CUDA events,
+whether the counts equal ``collision_counts_plain``'s, and the device ms per
+call of each kernel by torch.profiler.
 """
 
 from __future__ import annotations
@@ -31,8 +37,9 @@ SEED = 0
 WARMUP = 3
 
 
-def worker(tree: str, iters: int) -> None:
-    """One run: time `iters` forward + decode calls of the tree's port."""
+def worker(tree: str, iters: int, collision: bool) -> None:
+    """One run: time `iters` forward + decode calls of the tree's port, or
+    `iters` collision_counts calls on their grasps."""
     sys.path.insert(0, tree)
     import torch
 
@@ -51,6 +58,9 @@ def worker(tree: str, iters: int) -> None:
     _build.library()
     cloud = torch.from_numpy(make_point_clouds(SEED, BATCH, SceneConfig(num_points=NUM_POINTS))).to(dev)
     model = init_random_(GraspBalance(), SEED).to(dev).eval()
+    if collision:
+        collision_worker(tree, iters, cloud, model)
+        return
     times = []
     for i in range(WARMUP + iters):
         torch.cuda.synchronize()
@@ -59,7 +69,41 @@ def worker(tree: str, iters: int) -> None:
         torch.cuda.synchronize()
         if i >= WARMUP:
             times.append((time.perf_counter() - t) / BATCH * 1e3)
-    print(json.dumps({"tree": tree, "ms_per_scene": times}))
+    print(json.dumps({"tree": tree, "ms": times}))
+
+
+def collision_worker(tree: str, iters: int, cloud, model) -> None:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from graspbalance_tpu_torch.eval.collision import voxel_downsample_fixed
+    from graspbalance_tpu_torch.models import pred_decode
+    from graspbalance_tpu_torch.ops.collision import collision_counts, collision_counts_plain, pack_grasp_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.no_grad():
+        grasps, _ = pred_decode(model(cloud))
+    points, valid = voxel_downsample_fixed(cloud)
+    params = pack_grasp_params(grasps, 0.03, 0.01, 0.06)
+    equal = torch.equal(collision_counts(points, valid, params), collision_counts_plain(points, valid, params))
+    times = []
+    for i in range(WARMUP + iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        collision_counts(points, valid, params)
+        end.record()
+        torch.cuda.synchronize()
+        if i >= WARMUP:
+            times.append(start.elapsed_time(end))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            collision_counts(points, valid, params)
+        torch.cuda.synchronize()
+    device_ms = {e.key[:60]: e.self_device_time_total / 1e3 / iters for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and not e.is_user_annotation}
+    print(json.dumps({"tree": tree, "ms": times, "equal": equal, "device_ms": device_ms}))
 
 
 def main() -> int:
@@ -67,11 +111,12 @@ def main() -> int:
     ap.add_argument("trees", nargs="+")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--iters", type=int, default=30)
+    ap.add_argument("--collision", action="store_true", help="time the collision counts")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     trees = [os.path.abspath(t) for t in args.trees]
     if args.worker:
-        worker(trees[0], args.iters)
+        worker(trees[0], args.iters, args.collision)
         return 0
 
     smi = subprocess.run(
@@ -82,22 +127,26 @@ def main() -> int:
     runs = {t: [] for t in trees}
     for r in range(args.rounds):
         for tree in trees if r % 2 == 0 else trees[::-1]:
-            out = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), tree, "--iters", str(args.iters), "--worker"],
+            out = json.loads(subprocess.run(
+                [sys.executable, os.path.abspath(__file__), tree, "--iters", str(args.iters), "--worker"]
+                + ["--collision"] * args.collision,
                 capture_output=True, text=True, check=True, timeout=900,
-            ).stdout.strip().splitlines()[-1]
-            ms = json.loads(out)["ms_per_scene"]
+            ).stdout.strip().splitlines()[-1])
+            ms = out.pop("ms")
             runs[tree].append(ms)
+            rate = {} if args.collision else {"clouds_s": 1e3 * len(ms) / sum(ms)}
             print(json.dumps({
-                "tree": tree, "round": r, "clouds_s": 1e3 * len(ms) / sum(ms),
+                "tree": tree, "round": r, **rate,
                 "p50_ms": statistics.median(ms), "min_ms": min(ms), "max_ms": max(ms),
+                **{k: v for k, v in out.items() if k != "tree"},
             }))
     p50s = {t: [statistics.median(ms) for ms in per_run] for t, per_run in runs.items()}
     base = statistics.median(p50s[trees[0]])
     for tree in trees:
         q = statistics.quantiles(p50s[tree], n=4) if len(p50s[tree]) > 1 else [p50s[tree][0]] * 3
+        rate = {} if args.collision else {"clouds_s": [1e3 * len(ms) / sum(ms) for ms in runs[tree]]}
         print(json.dumps({
-            "tree": tree, "clouds_s": [1e3 * len(ms) / sum(ms) for ms in runs[tree]],
+            "tree": tree, **rate,
             "p50_ms": p50s[tree], "median_p50_ms": statistics.median(p50s[tree]),
             "iqr_p50_ms": q[2] - q[0], "median_vs_first": statistics.median(p50s[tree]) / base,
             "device": smi,
