@@ -35,15 +35,18 @@ the table-gather probe. Phases, each fatal on failure:
      exact, distances within 1e-6; the share of the warp-select's rounds in
      which a candidate passed the threshold, insertions per query, device
      ms per launch), the masked FPS on OBS's compacted slots of the scenes'
-     own objects (exact over the first max_needed slots), OBS at
+     own objects (exact over the first max_needed slots, two launches
+     bit-equal; device ms per call, also at max_needed=1 and on rows whose
+     only valid point is the first, and from them its time per step and the
+     floor of its step chain), OBS at
      num_seed=32 on a 6- and a 7-object scene, where the sparsest scene's
      quota is not the largest (seeds exact), the collision counts of phase
      4's grasps against the voxel-downsampled scenes (exact; first the
      shares of (32-grasp group, 32-point tile) and of (grasp, tile) pairs
      that the cull removes, counted by its plain twin, then the kernel's own
      count; K10's bound counts the pairs the cull keeps, printed beside the
-     bound of every pair; device kernels and device ms per call); K9 and K10 printed
-     beside their times before their redesign;
+     bound of every pair; device kernels and device ms per call); K4 printed
+     beside its time before its redesign;
   7. run GraspInference without and with OBS through the kernels (every
      kernel of each path launched; all six on the OBS path) and through the
      plain versions: segment labels and OBS seeds exact, decoded grasps as
@@ -79,7 +82,9 @@ the table-gather probe. Phases, each fatal on failure:
      query's gripper-frame coordinates of that forward's seeds and top-view
      rotations (within 1e-4); the class-plane selection on the same seeds
      (indices exact against its plain version and against the cylinder
-     query's kernel), and once through multi_cylinder_query(impl="select");
+     query's kernel, two launches bit-equal; device ms per call; its time
+     before its redesign and its bound before it beside the new ones), and
+     once through multi_cylinder_query(impl="select");
  11. the fused forward + decode through the kernels (mlpmax 19 launches,
      widthmlp_rel 1, widthmlp 0), against its plain run and against the
      default configuration's output, both as in phase 4 (a seed whose top
@@ -101,9 +106,9 @@ select query; the probe phase for the table gather), its error against the
 plain version, its time, the plain version's, the card's least time for the
 work (FPS's rows also the measured latency floor of its step chain) and,
 where one PyTorch call computes the same function, that call's time; the
-rows of the kernels redesigned last (kNN and the collision counts) are
-marked "redesigned", with their device ms (their earlier times are printed
-in phase 6); and as the last
+rows of the kernels redesigned last (the masked FPS and the class-plane
+selection) are marked "redesigned", with their device ms (their earlier
+times are printed in phases 6 and 10); and as the last
 line {"ok": true, "device": {...}}. Without CUDA it exits non-zero before
 any result. Imports nothing of JAX.
 """
@@ -145,13 +150,14 @@ FUSED_MLPMAX_LAUNCHES = 19  # 4 set abstractions + 15 local aggregations per for
 FUSED_ROUNDS = 4  # alternating rounds of the default and the fused forward + decode
 FUSED_ITERS = 5  # timed calls of each configuration per round
 PROBE_REPS = 20  # timed launches of the table gather and its yardsticks
+KERNEL_REPS = 20  # timed launches of the masked FPS and the class-plane selection
 # the kernels redesigned last, marked in the kernel table, and their times
-# before (commit 599a42e; NVIDIA H100 80GB HBM3, 700.00 W, this script),
-# printed beside the new ones in phase 6: kNN summed over the DSN's two
-# stages, the collision counts of phase 4's grasps
-REDESIGNED = ("knn", "collision")
-KNN_BEFORE_MS = 0.228
-COLLISION_BEFORE_MS = 0.319
+# before (commit b12ed93; NVIDIA H100 80GB HBM3, 700.00 W, this script),
+# printed beside the new ones: the masked FPS on OBS's rows (phase 6), the
+# class-plane selection on the fused forward's seeds (phase 10)
+REDESIGNED = ("fps_masked", "select")
+FPS_MASKED_BEFORE_MS = 0.197
+SELECT_BEFORE_MS = 2.434
 OBS_SMALL_SEEDS = 32  # phase 6's extra OBS check: a 6- and a 7-object scene
 # the kernels each path must launch
 PATH_KERNELS = {
@@ -569,8 +575,8 @@ def mlpmax_phase(calls) -> tuple[tuple, float, tuple]:
 def fused_phase(model, dsn, cloud, smi: str):
     """Phases 10-13 (see the module docstring): the fused eval
     configuration on the same weights as ``model``. Returns (path_launches,
-    times, errs, bounds) of its paths and of the mlp-max, width-MLP-rel and
-    select kernels."""
+    times, errs, bounds, device ms) of its paths and of the mlp-max,
+    width-MLP-rel and select kernels (device ms of the select only)."""
     import torch
 
     from graspbalance_tpu_torch import _build
@@ -585,7 +591,7 @@ def fused_phase(model, dsn, cloud, smi: str):
     fused.load_state_dict(model.state_dict(), strict=True)  # the same variables
     fused = fused.to(cloud.device).eval()
     wg = fused.width_grouping
-    launches, times, errs, bounds = {}, {}, {}, {}
+    launches, times, errs, bounds, device = {}, {}, {}, {}, {}
 
     # 10. the fused kernels against their plain versions at this path's shapes
     with torch.no_grad():
@@ -624,13 +630,18 @@ def fused_phase(model, dsn, cloud, smi: str):
                 "select kernel != the cylinder query's indices")
         require(torch.equal(sel, multicyl_select(cls, n_r, n_h, k)), "select kernel not deterministic")
         errs["select"] = 0
-        times["select"] = (cuda_ms(lambda: multicyl_select(cls, n_r, n_h, k), 5),
+        times["select"] = (cuda_ms(lambda: multicyl_select(cls, n_r, n_h, k), KERNEL_REPS),
                            cuda_ms(lambda: multicyl_select_plain(cls, n_r, n_h, k), 1), None)
+        per_call = device_ms_by_kernel(lambda: multicyl_select(cls, n_r, n_h, k), KERNEL_REPS)
+        device["select"] = sum(ms for key, (ms, _) in per_call.items() if "select_kernel" in key)
         # each row is read up to its last combo's k-th hit (all N where a
-        # combo has fewer): a byte and 2 + 3 per combo operations per point
+        # combo has fewer): its bytes and the indices written, and two
+        # integer operations per scanned point to decode its class; beside it
+        # the bound before the redesign, 2 + 3 per combo operations a point
         full = sel[..., -1] != sel[..., 0]
         scan = float(torch.where(full, sel[..., -1].long() + 1, cls.shape[1]).amax(dim=1).sum())
-        bounds["select"] = bound(scan + sel.numel() * 4, scan * (2 + 3 * n_r * n_h))
+        bounds["select"] = bound(scan + sel.numel() * 4, scan * 2)
+        old_bound = bound(scan + sel.numel() * 4, scan * (2 + 3 * n_r * n_h))
         # the op-level query that runs it, once
         torch.cuda.synchronize()
         _build.reset_launches()
@@ -641,8 +652,10 @@ def fused_phase(model, dsn, cloud, smi: str):
                 f"multi_cylinder_query(impl='select'): launches {launches['select_query']}, "
                 f"indices equal to the kernel query's: {torch.equal(sel_q, idx)}")
         print(f"select: class plane {tuple(cls.shape)} {cls.dtype}, {n_r}x{n_h} combos, k={k}: indices "
-              f"exact against the plain version and the cylinder query's kernel; "
-              f"{scan / cls.numel():.3f} of the plane scanned")
+              f"exact against the plain version and the cylinder query's kernel, two launches bit-equal; "
+              f"{scan / cls.numel():.3f} of the plane scanned; {times['select'][0]:.4f} ms (before the redesign: "
+              f"{SELECT_BEFORE_MS} ms), device {device['select']:.4f} ms; bound {bounds['select'][0]:.5f} ms "
+              f"({bounds['select'][1]}; before the redesign {old_bound[0]:.5f} ms, {old_bound[1]})")
         del cls, sel, sel_q, idx
 
     # 11. the fused forward + decode through the kernels, through the plain
@@ -709,7 +722,7 @@ def fused_phase(model, dsn, cloud, smi: str):
             calls[f"width head {name}"] = functools.partial(
                 net.width_grouping, ep["fp2_xyz"], cloud, ep["grasp_top_view_rot"])
         profile_calls(calls)
-    return launches, times, errs, bounds
+    return launches, times, errs, bounds, device
 
 
 def probe_phase():
@@ -1050,7 +1063,7 @@ def main() -> int:
     require(bool((seg_labels.amax(dim=1) > 0).all()),
             f"the DSN from seed {DSN_SEED} marks no foreground in some scene: OBS would see no object")
     print(f"DSN weights from seed {DSN_SEED}: {seg_labels.amax(dim=1).tolist()} clusters per scene")
-    device_ms = {}  # kNN and the collision counts: device ms per call (torch.profiler)
+    device_ms = {}  # device ms per call of the kernels timed so (torch.profiler)
     with torch.no_grad():
         knn_errs, knn_shapes = [], []
         xyz_dsn = gather_points(cloud, fps_k[:, : dsn.pt_stages[0][0]]).contiguous()
@@ -1088,8 +1101,8 @@ def main() -> int:
             sum(x.shape[0] * x.shape[1] ** 2 * 9 for x in knn_shapes),
         )
         print(f"kNN: {[tuple(x.shape) for x in knn_shapes]} k={kk} idx exact, "
-              f"dist max err {errs['knn']:.3g}; {times['knn'][0]:.4f} ms both stages (before the redesign: "
-              f"{KNN_BEFORE_MS} ms), cdist + topk {times['knn'][2]:.4f} ms; " + "; ".join(knn_work))
+              f"dist max err {errs['knn']:.3g}; {times['knn'][0]:.4f} ms both stages, "
+              f"cdist + topk {times['knn'][2]:.4f} ms; " + "; ".join(knn_work))
 
         # OBS's masked FPS on the compacted slots of the scenes' own objects
         o, fps_cap = MAX_OBJECTS, FPS_CAP
@@ -1108,15 +1121,38 @@ def main() -> int:
                 f"{int((mf_k[:, :needed] != mf_p[:, :needed]).sum())} differ")
         errs["fps_masked"] = int((mf_k[:, :needed] - mf_p[:, :needed]).abs().max())
         times["fps_masked"] = (
-            cuda_ms(lambda: furthest_point_sample_masked(cxyz, cvalid, fps_cap, max_needed=needed_t), 5),
+            cuda_ms(lambda: furthest_point_sample_masked(cxyz, cvalid, fps_cap, max_needed=needed_t), KERNEL_REPS),
             cuda_ms(lambda: furthest_point_sample_masked_plain(cxyz, cvalid, fps_cap), 1),
             None,
         )
+        require(torch.equal(mf_k, furthest_point_sample_masked(cxyz, cvalid, fps_cap, max_needed=needed_t)),
+                "masked FPS kernel not deterministic")
         n_valid = float(cvalid.sum())  # each step updates each valid point: 10 operations
         bounds["fps_masked"] = bound(cxyz.numel() * 4 + cvalid.numel() + mf_k.numel() * 4,
                                      (needed - 1) * n_valid * 10)
+        # the kernel's device time per call on the path's rows, at
+        # max_needed=1 (no step), and on rows whose only valid point is the
+        # first (every step only reduces: the floor of the step chain)
+        one = torch.ones((), dtype=torch.int32, device=dev)
+        first_only = torch.zeros_like(cvalid)
+        first_only[:, 0] = True
+
+        def masked_device_ms(valid, needed_arg):
+            per_call = device_ms_by_kernel(
+                lambda: furthest_point_sample_masked(cxyz, valid, fps_cap, max_needed=needed_arg), KERNEL_REPS)
+            return sum(ms for key, (ms, _) in per_call.items() if "fps_masked" in key)
+
+        device_ms["fps_masked"] = masked_device_ms(cvalid, needed_t)
+        fixed_ms = masked_device_ms(cvalid, one)
+        chain_ms = masked_device_ms(first_only, needed_t)
+        step_us = (device_ms["fps_masked"] - fixed_ms) / (needed - 1) * 1e3
+        chain_us = (chain_ms - fixed_ms) / (needed - 1) * 1e3
         print(f"masked FPS: {tuple(cxyz.shape)} -> {fps_cap}, {kmin} objects in the sparsest scene, "
-              f"exact over max_needed={needed} slots ({int(n_valid)} valid points in {BATCH * o} rows)")
+              f"exact over max_needed={needed} slots ({int(n_valid)} valid points in {BATCH * o} rows), two "
+              f"launches bit-equal; {times['fps_masked'][0]:.4f} ms (before the redesign: {FPS_MASKED_BEFORE_MS} "
+              f"ms); device ms per call {device_ms['fps_masked']:.4f}, at max_needed=1 {fixed_ms:.4f}, on rows "
+              f"whose only valid point is the first {chain_ms:.4f}; per step {step_us:.3f} us, its chain's "
+              f"floor {chain_us:.3f} us")
         # OBS at a seed count where the sparsest scene's quota is not the
         # largest: a 6- and a 7-object scene (points dealt to objects 1..k
         # and the background in turn, shuffled) at num_seed=32, whose last
@@ -1172,7 +1208,7 @@ def main() -> int:
               f"max overall count {int(cc_k[..., 4].max())}; the kernel kept {cull_kernel[0]} of "
               f"{cull_kernel[1]} (group, tile) pairs; bound {bounds['collision'][0]:.5f} ms on the pairs the "
               f"cull keeps ({all_pairs[0]:.5f} ms on every pair); "
-              f"{times['collision'][0]:.4f} ms (before the redesign: {COLLISION_BEFORE_MS} ms), device "
+              f"{times['collision'][0]:.4f} ms, device "
               f"{device_ms['collision']:.4f} ms in {sum(c for _, c in per_call.values()):.0f} kernels per call ("
               + ", ".join(f"{key[:40]} {ms:.4f}" for key, (ms, _) in per_call.items()) + ")")
 
@@ -1228,7 +1264,7 @@ def main() -> int:
     # 10-13. the fused eval configuration; 14. the table-gather probe
     fused = fused_phase(model, dsn, cloud, smi)
     path_launches.update(fused[0])
-    for d, new in zip((times, errs, bounds), fused[1:]):
+    for d, new in zip((times, errs, bounds, device_ms), fused[1:]):
         d.update(new)
     path_launches["probe"], times["table_gather"], errs["table_gather"], bounds["table_gather"] = probe_phase()
 

@@ -60,14 +60,40 @@
 // waits): the latency floor of the step chain at a shape, for measurement
 // only.
 //
-// Masked mode (gb_fps_masked): one block per row. The initial-distance
-// plane carries validity (-1 for an invalid point, as above); the seed is
-// each row's first valid index (index 0 for a row with none), and the step
-// count is read from a device int32, max_needed, clamped to [1, m], so that
-// OBS launches without a host sync. Slots from max_needed on are written as
-// 0 (the caller promises not to read them). OBS runs S = B x 16 rows of
-// N = 4096 compacted points: a 512-thread block per row, 8 distances per
-// thread, coordinates read through L1, warp winners met in shared memory.
+// Masked mode (gb_fps_masked): one block per row, reading the (S, N, 3)
+// points and the (S, N) valid mask as they are. A valid point's running
+// distance starts at 1e10, an invalid point's at -1 (never selected, as
+// above); the seed is each row's first valid index (index 0 for a row with
+// none, whose slots are all 0), and the step count is read from a device int32, max_needed,
+// clamped to [1, m], so that OBS launches without a host sync. Slots from
+// max_needed on are written as 0 (the caller promises not to read them).
+// OBS runs S = B x 16 rows of N = 4096 compacted points whose valid points
+// form a prefix, for ~128 steps: latency-bound like the main mode, but
+// inside one block, so a step's cost is its chain of dependent operations.
+// A step takes one barrier and no global read:
+//   1. each thread updates the running distances of its points (point p of
+//      thread t has index t + T p) and keeps its best (value, lowest
+//      index); a warp updates its points in groups of kGroup, only up to the
+//      group of its last valid point (counted once per row), so in OBS's
+//      prefix rows the warps past the prefix only reduce (a warp-uniform
+//      test per point, each a branch on the step's chain, was slower);
+//   2. each warp reduces its lanes' candidates as one key, the distance's
+//      order-preserving int above the index (two redux.sync: the largest
+//      key, then the lowest index holding it), and lane 0 stores the
+//      (key, index) pair into the warp's slot of a parity-buffered shared
+//      array (step j writes buffer j % 2; a warp that writes step j + 1's
+//      slot has passed step j's barrier, after every read of step j - 1's);
+//   3. one __syncthreads, then every warp reduces the block's slots by the
+//      same rule, so every thread knows the winner without a second
+//      barrier; thread 0 writes out[j];
+//   4. the winner's coordinates come from the row staged in shared memory
+//      (float4 per point), read once at the start.
+// Rows of up to kStagedMax = 8,192 points take this route: 256 threads with
+// up to 32 points each, coordinates and distances in registers. Longer
+// rows (foreground_indices passes whole 20,000-point scenes), up to 32,768
+// points, take 1,024 threads with 32 distances each in registers and read
+// their coordinates, and the winner's, through L1 every step. Both give the
+// plain version's indices bit for bit.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -87,8 +113,11 @@ constexpr int kTargetPerThread = 20;  // the smallest cluster whose threads hold
 constexpr int kMaxPerThread = 32;
 constexpr int kMaxPoints = kMaxCluster * kThreads * kMaxPerThread;  // 65536
 constexpr int kSlotBytes = 20;        // a winner as pushed: key, index, x, y, z
-constexpr int kMaskedThreads = 512;   // OBS: (64, 4096)
-constexpr int kMaskedBigThreads = 1024;
+constexpr int kMaskedThreads = 256;   // rows staged in shared memory, up to 32 points a thread
+constexpr int kMaskedBigThreads = 1024;  // longer rows, coordinates through L1
+constexpr int kStagedMax = kMaskedThreads * 32;  // 8192
+constexpr float kInitDist = 1e10f;  // a valid point's running distance before the first step
+constexpr int kGroup = 4;  // the masked kernel's points a thread, updated or skipped together
 constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ float sq3(float x, float y, float z) {
@@ -367,71 +396,86 @@ cudaError_t launch_fps(const float* planes, const float* dist0, int32_t* out, in
   return launch_cluster<kMaxPerThread, kChainOnly>(planes, dist0, out, b, n, m, c, s);
 }
 
-__device__ __forceinline__ void keep_better(float& v, int& i, float ov, int oi) {
-  if (ov > v || (ov == v && oi < i)) {
-    v = ov;
-    i = oi;
-  }
-}
-
-__device__ __forceinline__ void warp_best(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(0xffffffffu, v, off);
-    const int oi = __shfl_down_sync(0xffffffffu, i, off);
-    keep_better(v, i, ov, oi);
-  }
-}
-
-template <int T, int P>
+// one masked row per block (see the note at the top): T threads, P points
+// a thread; kStaged: coordinates in registers and the row in shared memory,
+// else coordinates read through L1
+template <int T, int P, bool kStaged>
 __global__ void __launch_bounds__(T, 1)
-    fps_masked_kernel(const float* planes, const float* __restrict__ dist0, int n, int m,
+    fps_masked_kernel(const float* __restrict__ xyz, const bool* __restrict__ valid, int n, int m,
                       const int32_t* __restrict__ needed, int32_t* __restrict__ out) {
   constexpr int kBlockWarps = T / 32;
-  const float* px = planes + static_cast<size_t>(blockIdx.x) * 3 * n;
-  const float* d0 = dist0 + static_cast<size_t>(blockIdx.x) * n;
-  const float* py = px + n;
-  const float* pz = py + n;
+  extern __shared__ float4 s_xyz[];  // kStaged: the row's n points
+  __shared__ int2 s_slot[2][kBlockWarps];  // a step's warp winners (key, index), by parity
+  __shared__ int s_first;
+  const float* pr = xyz + static_cast<size_t>(blockIdx.x) * 3 * n;
+  const bool* vr = valid + static_cast<size_t>(blockIdx.x) * n;
   int32_t* o = out + static_cast<size_t>(blockIdx.x) * m;
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
 
-  __shared__ float s_val[32];
-  __shared__ int s_idx[32];
-  __shared__ int s_best;
-
-  float dist[P];
+  // this thread's points; padding past n has distance -inf and never wins
+  float x[kStaged ? P : 1], y[kStaged ? P : 1], z[kStaged ? P : 1], dist[P];
+  int top = 0;    // 1 + the last p holding a valid point
+  int first = INT_MAX;  // the thread's first valid index
 #pragma unroll
   for (int p = 0; p < P; ++p) {
     const int i = t + p * T;
-    dist[p] = i < n ? d0[i] : -1.0f;
+    const bool in = i < n;
+    const bool ok = in && vr[i];
+    dist[p] = ok ? kInitDist : (in ? -1.0f : -INFINITY);
+    if (ok) {
+      top = p + 1;
+      first = min(first, i);
+    }
+    if constexpr (kStaged) {
+      x[p] = in ? pr[3 * i] : 0.0f;
+      y[p] = in ? pr[3 * i + 1] : 0.0f;
+      z[p] = in ? pr[3 * i + 2] : 0.0f;
+      if (in) s_xyz[i] = make_float4(x[p], y[p], z[p], 0.0f);
+    }
   }
-
-  // seed: the first valid index (0 when the row has none)
-  int first = INT_MAX;
-#pragma unroll
-  for (int p = P - 1; p >= 0; --p) {
-    if (dist[p] > 0.0f) first = t + p * T;
-  }
-  if (t == 0) s_best = INT_MAX;
+  // the warp updates its points up to its last valid one
+  const int upto = __reduce_max_sync(0xffffffffu, top);
+  // seed: the first valid index
+  if (t == 0) s_first = INT_MAX;
   __syncthreads();
-  if (first != INT_MAX) atomicMin(&s_best, first);
-  __syncthreads();
-  const int seed = s_best == INT_MAX ? 0 : s_best;
+  first = static_cast<int>(__reduce_min_sync(0xffffffffu, static_cast<unsigned>(first)));
+  if (lane == 0 && first != INT_MAX) atomicMin(&s_first, first);
+  __syncthreads();  // also publishes the staged row
+  const int seed = s_first;
   const int steps = min(max(*needed, 1), m);
   for (int j = steps + t; j < m; j += T) o[j] = 0;
+  if (seed == INT_MAX) {  // no valid point: index 0 everywhere
+    for (int j = t; j < steps; j += T) o[j] = 0;
+    return;
+  }
   if (t == 0) o[0] = seed;
 
-  float lx = px[seed], ly = py[seed], lz = pz[seed];
+  float lx, ly, lz;
+  if constexpr (kStaged) {
+    const float4 q = s_xyz[seed];
+    lx = q.x, ly = q.y, lz = q.z;
+  } else {
+    lx = pr[3 * seed], ly = pr[3 * seed + 1], lz = pr[3 * seed + 2];
+  }
   for (int j = 1; j < steps; ++j) {
-    float bv = -2.0f;  // below every running distance (>= -1)
-    int bi = INT_MAX;
+    float bv = -INFINITY;
+    unsigned bi = t;  // a lane without a candidate above -inf never wins: the row has a valid point
 #pragma unroll
-    for (int p = 0; p < P; ++p) {
-      const int i = t + p * T;
-      if (i < n) {
-        const float d = sq3(__fsub_rn(px[i], lx), __fsub_rn(py[i], ly), __fsub_rn(pz[i], lz));
+    for (int g = 0; g < P; g += kGroup) {
+      if (g >= upto) continue;  // a warp-uniform test per kGroup points
+#pragma unroll
+      for (int p = g; p < g + kGroup; ++p) {
+        const int i = t + p * T;
+        float xp, yp, zp;
+        if constexpr (kStaged) {
+          xp = x[p], yp = y[p], zp = z[p];
+        } else {
+          const float* q = pr + 3 * min(i, n - 1);  // past n: any point, its distance stays -inf
+          xp = __ldg(q), yp = __ldg(q + 1), zp = __ldg(q + 2);
+        }
+        const float d = sq3(__fsub_rn(xp, lx), __fsub_rn(yp, ly), __fsub_rn(zp, lz));
         const float nd = fminf(dist[p], d);
         dist[p] = nd;
         if (nd > bv) {  // i rises with p: strict > keeps the lowest index
@@ -440,33 +484,53 @@ __global__ void __launch_bounds__(T, 1)
         }
       }
     }
-    warp_best(bv, bi);
-    if (lane == 0) {
-      s_val[warp] = bv;
-      s_idx[warp] = bi;
-    }
+    // the warp's winner: the largest key, then the lowest index holding it
+    const int key = order_key(bv);
+    const int wk = __reduce_max_sync(0xffffffffu, key);
+    const unsigned wi = __reduce_min_sync(0xffffffffu, key == wk ? bi : 0xffffffffu);
+    const int buf = j & 1;
+    if (lane == 0) s_slot[buf][warp] = make_int2(wk, static_cast<int>(wi));
     __syncthreads();
-    if (warp == 0) {
-      bv = lane < kBlockWarps ? s_val[lane] : -2.0f;
-      bi = lane < kBlockWarps ? s_idx[lane] : INT_MAX;
-      warp_best(bv, bi);
-      if (lane == 0) {
-        s_best = bi;
-        o[j] = bi;
-      }
+    // every warp reduces the block's winners by the same rule
+    const int2 c = lane < kBlockWarps ? s_slot[buf][lane] : make_int2(INT_MIN, -1);
+    const int bk = __reduce_max_sync(0xffffffffu, c.x);
+    const unsigned best = __reduce_min_sync(0xffffffffu, c.x == bk ? static_cast<unsigned>(c.y) : 0xffffffffu);
+    if (t == 0) o[j] = static_cast<int32_t>(best);
+    if constexpr (kStaged) {
+      const float4 q = s_xyz[best];
+      lx = q.x, ly = q.y, lz = q.z;
+    } else {
+      const float* q = pr + 3 * best;
+      lx = __ldg(q), ly = __ldg(q + 1), lz = __ldg(q + 2);
     }
-    __syncthreads();
-    const int best = s_best;
-    lx = __ldg(px + best);
-    ly = __ldg(py + best);
-    lz = __ldg(pz + best);
   }
 }
 
+// the staged kernels' shared memory past 48 KB, allowed once per
+// instantiation, process and device
 template <int T, int P>
-cudaError_t launch_masked(const float* planes, const float* dist0, const int32_t* needed, int32_t* out,
-                          int b, int n, int m, cudaStream_t stream) {
-  fps_masked_kernel<T, P><<<b, T, 0, stream>>>(planes, dist0, n, m, needed, out);
+cudaError_t allow_staged_smem() {
+  static bool done[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    err = cudaFuncSetAttribute(fps_masked_kernel<T, P, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               T * P * static_cast<int>(sizeof(float4)));
+    if (err != cudaSuccess) return err;
+    done[dev] = true;
+  }
+  return cudaSuccess;
+}
+
+template <int P>
+cudaError_t launch_staged(const float* xyz, const bool* valid, const int32_t* needed, int32_t* out, int b, int n,
+                          int m, cudaStream_t stream) {
+  constexpr int T = kMaskedThreads;
+  cudaError_t err = allow_staged_smem<T, P>();
+  if (err != cudaSuccess) return err;
+  fps_masked_kernel<T, P, true><<<b, T, n * sizeof(float4), stream>>>(xyz, valid, n, m, needed, out);
   return cudaGetLastError();
 }
 
@@ -489,26 +553,26 @@ extern "C" int gb_fps_chain(const float* planes, const float* dist0, int32_t* ou
       launch_fps<true>(planes, dist0, out, b, n, m, static_cast<cudaStream_t>(stream)));
 }
 
-// Masked mode. planes: (S, 3, N) f32; dist0: (S, N) f32 (1e10 for a valid
-// point, -1 otherwise); needed: one device int32, the number of leading
-// slots the caller reads; out: (S, m) int32. N <= 32768 (rows past 16384
-// points take 1024-thread blocks).
-extern "C" int gb_fps_masked(const float* planes, const float* dist0, const int32_t* needed,
-                             int32_t* out, int b, int n, int m, void* stream) {
+// Masked mode. xyz: (S, N, 3) f32; valid: (S, N) bool; needed: one device
+// int32, the number of leading slots the caller reads; out: (S, m) int32.
+// N <= 32768 (rows past 8192 points take 1024-thread blocks that read their
+// coordinates through L1).
+extern "C" int gb_fps_masked(const float* xyz, const bool* valid, const int32_t* needed, int32_t* out, int b,
+                             int n, int m, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (b < 1 || n < 1 || m < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int per_thread = (n + kMaskedThreads - 1) / kMaskedThreads;
-  constexpr int T = kMaskedThreads;
-  constexpr int TB = kMaskedBigThreads;
   cudaError_t err;
-  if (per_thread <= 1) err = launch_masked<T, 1>(planes, dist0, needed, out, b, n, m, s);
-  else if (per_thread <= 2) err = launch_masked<T, 2>(planes, dist0, needed, out, b, n, m, s);
-  else if (per_thread <= 4) err = launch_masked<T, 4>(planes, dist0, needed, out, b, n, m, s);
-  else if (per_thread <= 8) err = launch_masked<T, 8>(planes, dist0, needed, out, b, n, m, s);
-  else if (per_thread <= 16) err = launch_masked<T, 16>(planes, dist0, needed, out, b, n, m, s);
-  else if (per_thread <= 32) err = launch_masked<T, 32>(planes, dist0, needed, out, b, n, m, s);
-  else if (n <= 20 * TB) err = launch_masked<TB, 20>(planes, dist0, needed, out, b, n, m, s);
-  else if (n <= 32 * TB) err = launch_masked<TB, 32>(planes, dist0, needed, out, b, n, m, s);
-  else err = cudaErrorInvalidValue;
+  if (per_thread <= 4) err = launch_staged<4>(xyz, valid, needed, out, b, n, m, s);
+  else if (per_thread <= 8) err = launch_staged<8>(xyz, valid, needed, out, b, n, m, s);
+  else if (per_thread <= 16) err = launch_staged<16>(xyz, valid, needed, out, b, n, m, s);
+  else if (n <= kStagedMax) err = launch_staged<32>(xyz, valid, needed, out, b, n, m, s);
+  else if (n <= 32 * kMaskedBigThreads) {
+    fps_masked_kernel<kMaskedBigThreads, 32, false><<<b, kMaskedBigThreads, 0, s>>>(xyz, valid, n, m, needed, out);
+    err = cudaGetLastError();
+  } else {
+    err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }
 

@@ -136,13 +136,11 @@ def furthest_point_sample_masked(
     if max_needed is None:
         max_needed = num_samples
     needed = torch.as_tensor(max_needed, dtype=torch.int32, device=xyz.device).reshape(1)
-    planes = xyz.transpose(1, 2).contiguous()  # (S, 3, N)
-    dist0 = masked_initial_distances(valid).contiguous()
     out = torch.empty((s, num_samples), dtype=torch.int32, device=xyz.device)
     lib = _build.library()
     with torch.cuda.device(xyz.device):
         err = lib.gb_fps_masked(
-            planes.data_ptr(), dist0.data_ptr(), needed.data_ptr(), out.data_ptr(),
+            xyz.data_ptr(), valid.data_ptr(), needed.data_ptr(), out.data_ptr(),
             s, n, num_samples, _build.stream_of(xyz),
         )
     _build.check(err, "fps_masked")

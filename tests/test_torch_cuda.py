@@ -8,7 +8,11 @@ unsorted radii and depths, nsample 1 and 100), duplicate kNN references
 (every point 8 times on an integer grid at k = 1, 8, 16, 17, 31, 32),
 reference counts below a tile, off multiples of 32 and over several tiles,
 a single query, kNN beyond the kernel's k = 32 (a stable sort, no launch),
-masked-FPS rows with no valid point; for the collision counts ragged grasp
+masked-FPS rows with no valid point, row lengths at every edge of its
+routes (4-32 points a thread of 256, then 1,024 threads through L1), OBS's
+prefix rows, one valid point with needed > 1, duplicated points whose ties
+decide, and max_needed of 1, 128 and every slot at OBS's (64, 4096) -> 512;
+for the collision counts ragged grasp
 and point counts, points on and within ulps of box faces, grasps whose
 boxes meet a tile's bounding box from either side on each axis, scenes in
 voxel order and in random order, an all-invalid scene and valid sets that
@@ -25,8 +29,11 @@ cores B = 1, N off the 128-row tile's points, one part and two (on the CUDA
 cores and the tensor cores), the widest layer, four layers, channels off
 the 16-byte copies and an unaligned part, within 1e-4 abs + rel; for the width MLP
 on gripper-frame coordinates an odd seed count; for the class-plane
-selection rows with no hit and with fewer hits than k, and row lengths off
-the warp's 32; for the table gather non-square tables on both axes, tables past
+selection rows with no hit and with fewer hits than k, row lengths off the
+warp's 32 and around its 16-byte loads and 512-point steps, planes that
+start 1-15 bytes into their allocation, 1 x 1 to 7 x 2 combos, k of 1, 32,
+33 and 100, values above 63, and rows that fill every combo in the first
+step; for the table gather non-square tables on both axes, tables past
 the old design's shared-memory limit at dim 0, dim-1 rows from a warp's to
 nearly one block's shared memory, N off the float4 and unaligned pointers,
 and the refusal of longer dim-1 rows; for FPS on a cluster of blocks N
@@ -383,6 +390,68 @@ def test_fps_masked_kernel(dev, rng, n, m, needed):
     picked = valid.gather(1, got[:, :needed].long())
     has = valid.any(dim=1)
     assert bool(picked[has].all())
+
+
+def _masked_rows(rng, case, s, n):
+    """(s, n, 3) points and (s, n) valid masks of one kind of row."""
+    xyz = (rng.random((s, n, 3)) - 0.5).astype(np.float32)
+    valid = np.zeros((s, n), bool)
+    if case == "prefix":  # OBS's compacted rows: the valid points lead
+        for r, kc in enumerate(np.linspace(0, n, s).astype(int)):
+            valid[r, :kc] = True
+    elif case == "single_valid":
+        valid[np.arange(s), rng.integers(0, n, s)] = True
+    elif case == "duplicates":  # every point 4 times on a coarse grid: ties decide
+        g = rng.integers(-3, 4, (s, n // 4 + 1, 3)).astype(np.float32)
+        xyz = np.ascontiguousarray(np.repeat(g, 4, axis=1)[:, :n][:, rng.permutation(n)])
+        valid = rng.random((s, n)) < 0.7
+    elif case == "all_invalid":
+        pass
+    return torch.from_numpy(xyz), torch.from_numpy(valid)
+
+
+def _check_masked(xyz, valid, m, needed):
+    needed_t = torch.tensor(needed, dtype=torch.int32, device=xyz.device)
+    before = _build.launches["fps_masked"]
+    got = furthest_point_sample_masked(xyz, valid, m, max_needed=needed_t)
+    assert _build.launches["fps_masked"] == before + 1
+    steps = min(max(needed, 1), m)
+    want = furthest_point_sample_masked_plain(xyz, valid, steps)
+    torch.testing.assert_close(got[:, :steps], want, atol=0, rtol=0)
+    assert bool((got[:, steps:] == 0).all())
+    assert torch.equal(got, furthest_point_sample_masked(xyz, valid, m, max_needed=needed_t))
+
+
+@pytest.mark.parametrize("n", [1, 31, 512, 513, 1024, 1025, 2048, 2049, 4096, 4097, 8192, 8193, 16384, 16385,
+                               20000, 32768])
+def test_fps_masked_kernel_dispatch_edges(dev, rng, n):
+    """Every row length at an edge of the kernel's routes (4, 8, 16 and 32
+    points a thread of 256, then 1,024 threads reading through L1), with
+    mixed, prefix and all-valid rows."""
+    xyz = torch.from_numpy((rng.random((4, n, 3)) - 0.5).astype(np.float32)).to(dev)
+    valid = torch.from_numpy(rng.random((4, n)) < 0.5).to(dev)
+    valid[1, n // 3 :] = False
+    valid[2] = True
+    _check_masked(xyz, valid, min(n, 200), min(n, 200))
+
+
+@pytest.mark.parametrize("case", ["prefix", "single_valid", "duplicates", "all_invalid"])
+def test_fps_masked_kernel_rows(dev, rng, case):
+    """OBS-style prefix rows, one valid point and needed > 1 (it is picked
+    again, at distance 0), duplicated points whose ties go to the lowest
+    index, and rows with no valid point (0 everywhere)."""
+    xyz, valid = (a.to(dev) for a in _masked_rows(rng, case, 9, 4096))
+    _check_masked(xyz, valid, 512, 128)
+    if case == "all_invalid":
+        assert bool((furthest_point_sample_masked(xyz, valid, 64) == 0).all())
+
+
+@pytest.mark.parametrize("needed", [1, 128, 512])
+def test_fps_masked_kernel_needed(dev, rng, needed):
+    """OBS's shape, 64 rows of 4,096 points -> 512 slots, at max_needed of
+    1, the path's 128 and every slot."""
+    xyz, valid = (a.to(dev) for a in _masked_rows(rng, "prefix", 64, 4096))
+    _check_masked(xyz, valid, 512, needed)
 
 
 def _grasps(rng, b, g):
@@ -837,6 +906,71 @@ def test_select_kernel_edge_cases(dev, rng, n, k):
     torch.testing.assert_close(got, multicyl_select_plain(cls, 4, 4, k), atol=0, rtol=0)
     assert bool((got[0] == 0).all())
     assert torch.equal(got, multicyl_select(cls, 4, 4, k))
+
+
+def _check_select(cls, n_r, n_h, k):
+    before = _build.launches["select"]
+    got = multicyl_select(cls, n_r, n_h, k)
+    assert _build.launches["select"] == before + 1
+    torch.testing.assert_close(got, multicyl_select_plain(cls, n_r, n_h, k), atol=0, rtol=0)
+    assert torch.equal(got, multicyl_select(cls, n_r, n_h, k))
+    return got
+
+
+def _class_rows(rng, rows, n):
+    """Class planes of mixed rows: sparse and dense hits, values above 63,
+    a row with no hit and one whose hits come last."""
+    cls = rng.integers(0, 8, (rows, n)) * 8 + rng.integers(0, 8, (rows, n))
+    cls[: rows // 2][rng.random((rows // 2, n)) < 0.9] = 63
+    cls[-1] = rng.integers(0, 256, n)
+    cls[-2] = 63
+    cls[-3] = 63
+    cls[-3, -3:] = 0
+    return cls.astype(np.uint8)
+
+
+@pytest.mark.parametrize("n_r,n_h", [(1, 1), (2, 7), (7, 2), (3, 5), (4, 4)])
+def test_select_kernel_combo_shapes(dev, rng, n_r, n_h):
+    cls = torch.from_numpy(_class_rows(rng, 21, 3001)).to(dev)
+    _check_select(cls, n_r, n_h, 64)
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 511, 513, 3001, 20000])
+def test_select_kernel_row_lengths(dev, rng, n):
+    """Row lengths around the 16-byte loads and the 512-point step; with
+    rows of n bytes every row starts at another offset in its chunk."""
+    cls = torch.from_numpy(_class_rows(rng, 21, n)).to(dev)
+    _check_select(cls, 4, 4, 64)
+
+
+@pytest.mark.parametrize("offset", list(range(1, 16)))
+def test_select_kernel_unaligned(dev, rng, offset):
+    """A plane that starts `offset` bytes into its allocation (a slice of a
+    larger buffer)."""
+    rows, n = 21, 2048
+    flat = torch.from_numpy(_class_rows(rng, rows + 1, n).reshape(-1)).to(dev)
+    cls = flat[offset : offset + rows * n].view(rows, n)
+    assert cls.data_ptr() % 16 == offset % 16
+    _check_select(cls, 4, 4, 64)
+
+
+@pytest.mark.parametrize("k", [1, 32, 33, 100])
+def test_select_kernel_k(dev, rng, k):
+    cls = torch.from_numpy(_class_rows(rng, 21, 3001)).to(dev)
+    _check_select(cls, 4, 4, k)
+
+
+def test_select_kernel_fills_in_the_first_step(dev, rng):
+    """Rows whose every combo holds k hits within the first 512 points
+    (every 32-lane scan field at its largest), beside rows that never
+    fill."""
+    cls = np.full((16, 3001), 63, np.uint8)
+    cls[:8] = 0
+    cls[4:8, 100:] = rng.integers(0, 64, (4, 2901))
+    cls[8:, ::97] = 0
+    cls = torch.from_numpy(cls).to(dev)
+    got = _check_select(cls, 4, 4, 100)
+    assert bool((got[:4] == torch.arange(100, dtype=torch.int32, device=dev)).all())
 
 
 def test_select_kernel_matches_the_cylinder_query(dev, rng):

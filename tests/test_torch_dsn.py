@@ -123,15 +123,45 @@ def test_knn_refuses_what_it_cannot_take():
         knn(pts, pts, 4, method="approx")
 
 
-@pytest.mark.parametrize("needed", [None, 20])
-def test_masked_fps_matches_jax(needed):
-    rng = np.random.default_rng(5)
-    s, n, m = 5, 300, 64
+def _masked_case(rng, case):
+    """(xyz (S, N, 3), valid (S, N), needed) of one kind of row."""
+    s, n = 5, 300
     xyz = (rng.random((s, n, 3)) - 0.5).astype(np.float32)
     valid = rng.random((s, n)) < 0.4
-    valid[0] = False  # no valid point: index 0 everywhere
-    valid[1, :150] = False  # the seed is the first valid index
-    valid[2, 7:] = False  # fewer valid points than samples
+    needed = 20 if case == "20" else None
+    if case in ("None", "20"):  # mixed rows
+        valid[0] = False  # no valid point: index 0 everywhere
+        valid[1, :150] = False  # the seed is the first valid index
+        valid[2, 7:] = False  # fewer valid points than samples
+    elif case == "prefix":  # OBS's compacted rows: the valid points lead
+        valid[:] = np.arange(n) < np.array([0, 1, 40, 150, n])[:, None]
+    elif case == "single_valid":  # picked again at distance 0, needed > 1
+        valid[:] = False
+        valid[np.arange(s), [0, 5, 150, 299, 77]] = True
+        needed = 30
+    elif case == "duplicates":  # every point 4 times: ties go to the lowest index
+        g = rng.integers(-2, 3, (s, n // 4, 3)).astype(np.float32)
+        xyz = np.repeat(g, 4, axis=1)[:, rng.permutation(n)]
+    elif case == "no_valid":
+        valid[:] = False
+    elif case == "needed_1":
+        needed = 1
+    elif case == "all_valid":
+        valid[:] = True
+    return xyz, valid, needed
+
+
+@pytest.mark.parametrize(
+    "case", ["None", "20", "prefix", "single_valid", "duplicates", "no_valid", "needed_1", "all_valid"]
+)
+def test_masked_fps_matches_jax(case):
+    """The port's masked FPS (its plain version on the CPU) against the JAX
+    package's XLA path and its Pallas kernel (interpreted), over the first
+    max_needed slots, on the rows the kernel's tie and key logic must get
+    right."""
+    rng = np.random.default_rng(5)
+    xyz, valid, needed = _masked_case(rng, case)
+    m = 64
     want = np.asarray(
         jax.vmap(lambda p, v: _masked_fps_single_xla(p, v, m))(jnp.asarray(xyz), jnp.asarray(valid))
     )
@@ -141,8 +171,10 @@ def test_masked_fps_matches_jax(needed):
     upto = m if needed is None else needed
     np.testing.assert_array_equal(got[:, :upto], want[:, :upto])
     np.testing.assert_array_equal(got[:, :upto], kern[:, :upto])
-    assert np.all(got[0] == 0)
-    assert got[1, 0] == np.argmax(valid[1])
+    has = valid.any(axis=1)
+    np.testing.assert_array_equal(got[:, 0], np.argmax(valid, axis=1))  # the first valid index, else 0
+    assert np.all(got[~has] == 0)
+    assert np.all(np.take_along_axis(valid, got[:, :upto].astype(np.int64), 1)[has])
 
 
 def _meanshift_inputs(rng, b, n):

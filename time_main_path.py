@@ -14,11 +14,16 @@ runs' clouds/s and p50s, the median and the interquartile distance of the
 run p50s, and the median's ratio to the first tree's), and, for two trees,
 the rounds in which the second tree's p50 is lower than the first's.
 
-With ``--collision`` each run times the collision counts instead, on the
-decoded grasps of those scenes and the voxel-downsampled clouds (the
-collision filter's inputs): ms per ``collision_counts`` call by CUDA events,
-whether the counts equal ``collision_counts_plain``'s, and the device ms per
-call of each kernel by torch.profiler.
+With ``--kernel NAME`` each run times one kernel's wrapper instead, on the
+inputs its path gives it: ``collision``, the collision counts of the
+decoded grasps of those scenes on the voxel-downsampled clouds (the
+collision filter's inputs); ``fps_masked``, OBS's masked FPS on the
+compacted rows of the scenes' own objects at the path's max_needed;
+``select``, the class-plane selection on the forward's seeds and top-view
+rotations (the width head's 4 x 4 combos at K = 64). It prints ms per call
+by CUDA events, whether the result equals the plain version's (the masked
+FPS over its first max_needed slots), and the device ms per call of each
+kernel by torch.profiler.
 """
 
 from __future__ import annotations
@@ -37,15 +42,15 @@ SEED = 0
 WARMUP = 3
 
 
-def worker(tree: str, iters: int, collision: bool) -> None:
+def worker(tree: str, iters: int, kernel: str | None) -> None:
     """One run: time `iters` forward + decode calls of the tree's port, or
-    `iters` collision_counts calls on their grasps."""
+    `iters` calls of one kernel's wrapper on its path's inputs."""
     sys.path.insert(0, tree)
     import torch
 
     import graspbalance_tpu_torch
     from graspbalance_tpu_torch import _build
-    from graspbalance_tpu_torch.data.synthetic import SceneConfig, make_point_clouds
+    from graspbalance_tpu_torch.data.synthetic import SceneConfig, make_scenes
     from graspbalance_tpu_torch.models import GraspBalance, pred_decode
     from graspbalance_tpu_torch.weights import init_random_
 
@@ -56,10 +61,11 @@ def worker(tree: str, iters: int, collision: bool) -> None:
         raise RuntimeError("no CUDA card")
     dev = torch.device("cuda", 0)
     _build.library()
-    cloud = torch.from_numpy(make_point_clouds(SEED, BATCH, SceneConfig(num_points=NUM_POINTS))).to(dev)
+    clouds, instance = make_scenes(SEED, BATCH, SceneConfig(num_points=NUM_POINTS))
+    cloud = torch.from_numpy(clouds).to(dev)
     model = init_random_(GraspBalance(), SEED).to(dev).eval()
-    if collision:
-        collision_worker(tree, iters, cloud, model)
+    if kernel:
+        kernel_worker(tree, iters, kernel, cloud, torch.from_numpy(instance).to(dev), model)
         return
     times = []
     for i in range(WARMUP + iters):
@@ -72,34 +78,75 @@ def worker(tree: str, iters: int, collision: bool) -> None:
     print(json.dumps({"tree": tree, "ms": times}))
 
 
-def collision_worker(tree: str, iters: int, cloud, model) -> None:
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def kernel_inputs(kernel: str, cloud, instance, model):
+    """(call, plain call, what to compare) of one kernel's wrapper on the
+    inputs its path gives it."""
+    import functools
 
-    from graspbalance_tpu_torch.eval.collision import voxel_downsample_fixed
+    import torch
+
     from graspbalance_tpu_torch.models import pred_decode
-    from graspbalance_tpu_torch.ops.collision import collision_counts, collision_counts_plain, pack_grasp_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     with torch.no_grad():
-        grasps, _ = pred_decode(model(cloud))
-    points, valid = voxel_downsample_fixed(cloud)
-    params = pack_grasp_params(grasps, 0.03, 0.01, 0.06)
-    equal = torch.equal(collision_counts(points, valid, params), collision_counts_plain(points, valid, params))
+        ep = model(cloud)
+    if kernel == "collision":
+        from graspbalance_tpu_torch.eval.collision import voxel_downsample_fixed
+        from graspbalance_tpu_torch.ops.collision import collision_counts, collision_counts_plain, pack_grasp_params
+
+        points, valid = voxel_downsample_fixed(cloud)
+        args = (points, valid, pack_grasp_params(pred_decode(ep)[0], 0.03, 0.01, 0.06))
+        return functools.partial(collision_counts, *args), functools.partial(collision_counts_plain, *args), None
+    if kernel == "fps_masked":
+        from graspbalance_tpu_torch.eval.obs import (
+            COMPACT_CAP,
+            FPS_CAP,
+            _compact_mask,
+            max_needed_steps,
+            object_masks,
+        )
+        from graspbalance_tpu_torch.ops.fps import furthest_point_sample_masked, furthest_point_sample_masked_plain
+
+        masks = object_masks(instance)
+        cxyz, _, cvalid = _compact_mask(cloud, masks, COMPACT_CAP)
+        cxyz = cxyz.reshape(-1, COMPACT_CAP, 3).contiguous()
+        cvalid = cvalid.reshape(-1, COMPACT_CAP).contiguous()
+        needed = max_needed_steps(masks.any(dim=2), model.backbone.num_seed)
+        return (functools.partial(furthest_point_sample_masked, cxyz, cvalid, FPS_CAP, max_needed=needed),
+                functools.partial(furthest_point_sample_masked_plain, cxyz, cvalid, FPS_CAP), int(needed))
+    if kernel == "select":
+        from graspbalance_tpu_torch.ops.query import class_plane
+        from graspbalance_tpu_torch.ops.select import multicyl_select, multicyl_select_plain
+
+        wg = model.width_grouping
+        seeds, rot = ep["fp2_xyz"].contiguous(), ep["grasp_top_view_rot"].contiguous()
+        cls = class_plane(cloud, seeds, rot, wg.radii, wg.hmin, wg.hmax_list).reshape(-1, cloud.shape[1])
+        args = (cls, len(wg.radii), len(wg.hmax_list), wg.nsample)
+        return functools.partial(multicyl_select, *args), functools.partial(multicyl_select_plain, *args), None
+    raise ValueError(f"no kernel {kernel!r}")
+
+
+def kernel_worker(tree: str, iters: int, kernel: str, cloud, instance, model) -> None:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run, run_plain, upto = kernel_inputs(kernel, cloud, instance, model)
+    got, want = run(), run_plain()
+    equal = torch.equal(got, want) if upto is None else torch.equal(got[:, :upto], want[:, :upto])
     times = []
     for i in range(WARMUP + iters):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        collision_counts(points, valid, params)
+        run()
         end.record()
         torch.cuda.synchronize()
         if i >= WARMUP:
             times.append(start.elapsed_time(end))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
-            collision_counts(points, valid, params)
+            run()
         torch.cuda.synchronize()
     device_ms = {e.key[:60]: e.self_device_time_total / 1e3 / iters for e in prof.key_averages()
                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation}
@@ -111,12 +158,13 @@ def main() -> int:
     ap.add_argument("trees", nargs="+")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--iters", type=int, default=30)
-    ap.add_argument("--collision", action="store_true", help="time the collision counts")
+    ap.add_argument("--kernel", choices=("collision", "fps_masked", "select"),
+                    help="time one kernel's wrapper on its path's inputs")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     trees = [os.path.abspath(t) for t in args.trees]
     if args.worker:
-        worker(trees[0], args.iters, args.collision)
+        worker(trees[0], args.iters, args.kernel)
         return 0
 
     smi = subprocess.run(
@@ -129,12 +177,12 @@ def main() -> int:
         for tree in trees if r % 2 == 0 else trees[::-1]:
             out = json.loads(subprocess.run(
                 [sys.executable, os.path.abspath(__file__), tree, "--iters", str(args.iters), "--worker"]
-                + ["--collision"] * args.collision,
+                + (["--kernel", args.kernel] if args.kernel else []),
                 capture_output=True, text=True, check=True, timeout=900,
             ).stdout.strip().splitlines()[-1])
             ms = out.pop("ms")
             runs[tree].append(ms)
-            rate = {} if args.collision else {"clouds_s": 1e3 * len(ms) / sum(ms)}
+            rate = {} if args.kernel else {"clouds_s": 1e3 * len(ms) / sum(ms)}
             print(json.dumps({
                 "tree": tree, "round": r, **rate,
                 "p50_ms": statistics.median(ms), "min_ms": min(ms), "max_ms": max(ms),
@@ -144,7 +192,7 @@ def main() -> int:
     base = statistics.median(p50s[trees[0]])
     for tree in trees:
         q = statistics.quantiles(p50s[tree], n=4) if len(p50s[tree]) > 1 else [p50s[tree][0]] * 3
-        rate = {} if args.collision else {"clouds_s": [1e3 * len(ms) / sum(ms) for ms in runs[tree]]}
+        rate = {} if args.kernel else {"clouds_s": [1e3 * len(ms) / sum(ms) for ms in runs[tree]]}
         print(json.dumps({
             "tree": tree, **rate,
             "p50_ms": p50s[tree], "median_p50_ms": statistics.median(p50s[tree]),
