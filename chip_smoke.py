@@ -4,15 +4,16 @@
     python3 chip_smoke.py
 
 Drives the port's paths (graspbalance_tpu_torch) at full width on 20,000-point
-synthetic scenes with random weights from seeds: at bs=4 the GraspBalance eval
+synthetic scenes with weights from seeds: at bs=4 the GraspBalance eval
 forward + pred_decode (the main path) and the serving pipeline
 GraspInference without and with OBS (DSN + mean shift + object-balanced
 re-seeding, grasp NMS, the voxel-downsampled collision filter); at bs=2 the
 training step (label matching, multi-task loss, backward, Adam + OneCycle,
 BatchNorm statistics); at bs=4 the fused eval configuration (every
 set abstraction and local aggregation fused, the width head on the query's
-gripper-frame coordinates) through forward + decode and both pipelines; and
-the table-gather probe. Phases, each fatal on failure:
+gripper-frame coordinates) through forward + decode and both pipelines; the
+table-gather probe; and the training loop through its CLI, with a resume, an
+eval pass and both label pipelines. Phases, each fatal on failure:
 
   1. print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from csrc/*.cu (one nvcc per source, all in
@@ -96,11 +97,33 @@ the table-gather probe. Phases, each fatal on failure:
      in, the backbone after FPS and the width head;
  14. the table gather on the probe's four cases and on dim 0 (65,536, 128)
      (exact against its plain version and torch.gather), timed beside both
-     (CUDA events, and device time per launch from torch.profiler).
+     (CUDA events, and device time per launch from torch.profiler);
+ 15. the training loop at bs=2 on full-width make_batch scenes with the
+     static labels: cli/train.main for 2 epochs x LOOP_STEPS steps (fps,
+     multicyl and scatter launched, widthmlp not; one train metric line an
+     epoch, the checkpoints of both epochs, best.json at the lower epoch
+     loss, config.json the CLI's config; its ms/step in epoch 2 beside
+     phase 9's median, the share spent waiting on the prefetch queue, the
+     uploads by key and bytes a step, the checkpoint's save ms and size);
+     the same run stopped after epoch 1 by loop.train and resumed with an
+     eval stream of LOOP_EVAL_BATCHES batches (fps and multicyl launched
+     once a forward, widthmlp once an eval step, scatter as many times a
+     step as in the CLI run; its final parameters and BatchNorm statistics
+     bit-equal to the CLI run's last checkpoint); the eval step through
+     the kernels against the plain versions on that state (every metric
+     within LOSS_RTOL); the loop against the bare step in LOOP_ALT_ROUNDS
+     alternating rounds (one loop epoch resumed, then the same batches,
+     uploaded beforehand, through train_step back to back; ms/step of each
+     and their ratio); --synthetic_analytic for LOOP_ANALYTIC_STEPS steps
+     and the card's label expansion against the host's numpy tensors
+     (equal except where a width lies within an ulp of GRASP_MAX_WIDTH,
+     counted); the peak memory of one training step at bs=2 and 4, and at
+     bs=8 when the extrapolation from bs=2 and 4 stays under PEAK_LIMIT_GB.
 
 Prints the kernel table as one JSON line, a row per TPU kernel (K2 and K3 are
 covered by K1's kernel): its launches on the path named in its "path" (the
-OBS pipeline; one training step for the scatter-add; the fused OBS pipeline
+resumed training loop with its eval pass for FPS, the cylinder query, the
+width MLP and the scatter-add; the OBS pipeline; the fused OBS pipeline
 for the mlp-max and the width MLP on rotated coordinates; the op-level
 select query; the probe phase for the table gather), its error against the
 plain version, its time, the plain version's, the card's least time for the
@@ -159,12 +182,20 @@ REDESIGNED = ("fps_masked", "select")
 FPS_MASKED_BEFORE_MS = 0.197
 SELECT_BEFORE_MS = 2.434
 OBS_SMALL_SEEDS = 32  # phase 6's extra OBS check: a 6- and a 7-object scene
+# phase 15, the training loop: 2 epochs of LOOP_STEPS synthetic steps at
+# TRAIN_BATCH, an eval stream of LOOP_EVAL_BATCHES batches on the resume
+LOOP_STEPS = 4
+LOOP_EVAL_BATCHES = 2
+LOOP_ANALYTIC_STEPS = 2  # --synthetic_analytic steps (labels expanded on the card)
+LOOP_ALT_ROUNDS = 4  # the loop against the bare step: rounds of one loop epoch, then the bare steps
+PEAK_LIMIT_GB = 76.0  # the bs=8 step runs only when its extrapolated peak is below this
 # the kernels each path must launch
 PATH_KERNELS = {
     "main": ("fps", "multicyl", "widthmlp"),
     "no_obs": ("fps", "multicyl", "widthmlp", "collision"),
     "obs": ("fps", "multicyl", "widthmlp", "knn", "fps_masked", "collision"),
     "train": ("fps", "multicyl", "scatter"),
+    "loop": ("fps", "multicyl", "scatter", "widthmlp"),
     "fused_main": ("fps", "multicyl", "mlpmax", "widthmlp_rel"),
     "fused_no_obs": ("fps", "multicyl", "mlpmax", "widthmlp_rel", "collision"),
     "fused_obs": ("fps", "multicyl", "mlpmax", "widthmlp_rel", "knn", "fps_masked", "collision"),
@@ -174,18 +205,18 @@ PATH_KERNELS = {
 # the row reports); K2 and K3 compute K1's function in other layouts and
 # are covered by K1's kernel
 KERNEL_TABLE = (
-    ("K1", "fps", "fps", "fps.cu", "graspbalance_tpu/ops/pallas/fps_kernel.py:357", "obs"),
-    ("K2", "fps_pallas_2d", "fps", "fps.cu", "graspbalance_tpu/ops/pallas/fps_kernel.py:399", "obs"),
-    ("K3", "fps_pallas", "fps", "fps.cu", "graspbalance_tpu/ops/pallas/fps_kernel.py:439", "obs"),
+    ("K1", "fps", "fps", "fps.cu", "graspbalance_tpu/ops/pallas/fps_kernel.py:357", "loop"),
+    ("K2", "fps_pallas_2d", "fps", "fps.cu", "graspbalance_tpu/ops/pallas/fps_kernel.py:399", "loop"),
+    ("K3", "fps_pallas", "fps", "fps.cu", "graspbalance_tpu/ops/pallas/fps_kernel.py:439", "loop"),
     ("K4", "fps_masked", "fps_masked", "fps.cu", "graspbalance_tpu/ops/pallas/fps_kernel.py:300", "obs"),
-    ("K5", "widthmlp", "widthmlp", "widthmlp.cu", "graspbalance_tpu/ops/pallas/widthmlp_kernel.py:197", "obs"),
+    ("K5", "widthmlp", "widthmlp", "widthmlp.cu", "graspbalance_tpu/ops/pallas/widthmlp_kernel.py:197", "loop"),
     ("K6", "widthmlp_rel", "widthmlp_rel", "widthmlp.cu", "graspbalance_tpu/ops/pallas/widthmlp_kernel.py:74",
      "fused_obs"),
-    ("K7", "multicyl", "multicyl", "multicyl.cu", "graspbalance_tpu/ops/pallas/multicyl_kernel.py:212", "obs"),
+    ("K7", "multicyl", "multicyl", "multicyl.cu", "graspbalance_tpu/ops/pallas/multicyl_kernel.py:212", "loop"),
     ("K8", "select", "select", "select.cu", "graspbalance_tpu/ops/pallas/select_kernel.py:136", "select_query"),
     ("K9", "knn", "knn", "knn.cu", "graspbalance_tpu/ops/pallas/knn_kernel.py:80", "obs"),
     ("K10", "collision", "collision", "collision.cu", "graspbalance_tpu/ops/pallas/collision_kernel.py:132", "obs"),
-    ("K11", "scatter", "scatter", "scatter.cu", "graspbalance_tpu/ops/pallas/scatter_kernel.py:81", "train"),
+    ("K11", "scatter", "scatter", "scatter.cu", "graspbalance_tpu/ops/pallas/scatter_kernel.py:81", "loop"),
     ("K12", "mlpmax", "mlpmax", "mlpmax.cu", "graspbalance_tpu/ops/pallas/mlpmax_kernel.py:133", "fused_obs"),
     ("K13", "table_gather", "table_gather", "table_gather.cu", "tools/probe_mosaic_gather.py:45", "probe"),
 )
@@ -863,7 +894,222 @@ def train_phase(dev, smi: str):
           f"forward+loss {split[0]:.3f} ms, backward {split[1]:.3f} ms, optimizer {split[2]:.3f} ms; "
           f"peak device memory {peak_gb:.2f} GB ({smi})")
     profile_calls({"train": lambda: train_step(model, opt, sched, batch, 0, cfg)}, calls=2)
-    return launches, *scatter
+    return launches, *scatter, statistics.median(ms)
+
+
+def read_jsonl(path: str) -> list[dict]:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def all_finite(values) -> bool:
+    return all(v == v and abs(v) != float("inf") for v in values)
+
+
+def loop_phase(dev, smi: str, step_ms: float) -> dict:
+    """Phase 15 (see the module docstring). Returns the launch counts of the
+    resumed run: one epoch of training steps and its eval pass."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from graspbalance_tpu_torch import _build
+    from graspbalance_tpu_torch.cli import train as cli
+    from graspbalance_tpu_torch.data.synthetic import SceneConfig, make_batch
+    from graspbalance_tpu_torch.labels.analytic import analytic_label_tensors, expand_batch_labels
+    from graspbalance_tpu_torch.labels.geometry import GRASP_MAX_WIDTH
+    from graspbalance_tpu_torch.train import loop
+    from graspbalance_tpu_torch.train.checkpoints import load_config, load_inference_variables
+    from graspbalance_tpu_torch.train.config import Config
+    from graspbalance_tpu_torch.train.train_step import create_train_state, eval_step, train_step
+
+    root = tempfile.mkdtemp(prefix="gb_loop_")
+    scene = SceneConfig(num_points=NUM_POINTS, static_labels=True)  # the CLI's default stream
+    argv = ["--max_epoch", "2", "--synthetic_steps", str(LOOP_STEPS), "--batch_size", str(TRAIN_BATCH),
+            "--num_point", str(NUM_POINTS), "--device", str(dev)]
+    try:
+        # the CLI, 2 epochs straight through
+        cfg = cli.config_from_args(cli.parse_args(argv + ["--log_dir", f"{root}/cli"]))
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        cli.main(argv + ["--log_dir", f"{root}/cli"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        cli_launches = dict(_build.launches)
+        steps = 2 * LOOP_STEPS
+        require(all(cli_launches[k] > 0 for k in PATH_KERNELS["train"]) and cli_launches["widthmlp"] == 0,
+                f"loop training steps: launches {cli_launches}; needs fps, multicyl, scatter > 0 and widthmlp == 0")
+        require(cli_launches["fps"] == cli_launches["multicyl"] == steps and cli_launches["scatter"] % steps == 0,
+                f"loop training steps: launches {cli_launches} over {steps} steps")
+        lines = read_jsonl(f"{root}/cli/train_metrics.jsonl")  # log_every 10 > the epoch: one window an epoch
+        require([r["step"] for r in lines] == [LOOP_STEPS, steps], f"train metric lines at {[r['step'] for r in lines]}")
+        require(all(len(r) == len(lines[0]) and all_finite(v for k, v in r.items() if k != "time") for r in lines),
+                f"train metric lines: keys or values wrong: {lines}")
+        ckpt = f"{root}/cli/checkpoints"
+        saved = sorted(n for n in os.listdir(ckpt) if n.endswith(".pt"))
+        require(saved == [f"step_{LOOP_STEPS}.pt", f"step_{steps}.pt"], f"checkpoints {saved}")
+        with open(f"{ckpt}/best.json") as f:
+            best = json.load(f)
+        best_line = min(lines, key=lambda r: r["loss/overall_loss"])
+        require(best["step"] == best_line["step"] and best["loss"] == best_line["loss/overall_loss"],
+                f"best.json {best} against the epoch losses {[(r['step'], r['loss/overall_loss']) for r in lines]}")
+        require(load_config(ckpt) == cfg, "config.json differs from the CLI's config")
+        records = read_jsonl(f"{root}/cli/loop_metrics.jsonl")
+        require(len(records) == 2, f"loop telemetry records {records}")
+        rec = records[1]
+        uploads = {k.split("/")[-1]: int(v) for k, v in rec.items() if k.startswith("loop/uploads/")}
+        label_uploads = {k: int(records[0].get(f"loop/uploads/{k}", 0)) for k in ("grasp_labels", "grasp_widths",
+                                                                                 "grasp_tolerance")}
+        print(f"loop (cli/train.main, bs={TRAIN_BATCH}, 2 epochs x {LOOP_STEPS} steps, static labels): launches "
+              f"{cli_launches}; {cli_s:.1f} s in all; logged epoch losses "
+              f"{[r['loss/overall_loss'] for r in lines]}; checkpoints {saved}, best.json {best}")
+        print(f"loop epoch 2: {rec['loop/ms_per_step']:.3f} ms/step (host clock, synchronised at the epoch's end) "
+              f"against phase 9's median step {step_ms:.3f} ms ({rec['loop/ms_per_step'] / step_ms:.3f}x); "
+              f"waiting on the prefetch queue {rec['loop/prefetch_wait_share']:.4f} of it; uploads by key "
+              f"{uploads}, {rec['loop/uploaded_bytes'] / LOOP_STEPS / 1e6:.3f} MB a step (epoch 1: label tensors "
+              f"uploaded {label_uploads}, {records[0]['loop/uploaded_bytes'] / 1e9:.3f} GB); checkpoint save "
+              f"{rec['loop/checkpoint_ms']:.1f} ms, {rec['loop/checkpoint_bytes'] / 1e6:.1f} MB ({smi})")
+        require(all(label_uploads[k] == 1 for k in label_uploads) and not set(label_uploads) & set(uploads),
+                f"static label tensors uploaded {label_uploads} in epoch 1 and {uploads} in epoch 2")
+
+        # the same run stopped after epoch 1, then resumed with an eval stream
+        def batches(epoch):
+            for i in range(LOOP_STEPS):
+                yield make_batch(epoch * LOOP_STEPS + i, TRAIN_BATCH, scene)
+
+        def evals():
+            return (make_batch(1000 + i, TRAIN_BATCH, scene) for i in range(LOOP_EVAL_BATCHES))
+
+        rcfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, log_dir=f"{root}/res"))
+        loop.train(dataclasses.replace(rcfg, train=dataclasses.replace(rcfg.train, stop_after_epochs=1)), batches,
+                   steps_per_epoch=LOOP_STEPS, device=dev)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        res = loop.train(rcfg, batches, evals, steps_per_epoch=LOOP_STEPS, device=dev)
+        torch.cuda.synchronize()
+        launches = dict(_build.launches)
+        forwards = LOOP_STEPS + LOOP_EVAL_BATCHES
+        per_step = cli_launches["scatter"] // steps
+        require(launches["fps"] == launches["multicyl"] == forwards and launches["widthmlp"] == LOOP_EVAL_BATCHES
+                and launches["scatter"] == per_step * LOOP_STEPS,
+                f"resumed loop: launches {launches}; needs fps and multicyl {forwards} (train and eval steps), "
+                f"widthmlp {LOOP_EVAL_BATCHES} (eval steps), scatter {per_step * LOOP_STEPS} (train steps)")
+        res_lines = read_jsonl(f"{root}/res/train_metrics.jsonl")
+        test_lines = read_jsonl(f"{root}/res/test_metrics.jsonl")
+        require([r["step"] for r in test_lines] == [steps] and all_finite(
+            v for k, v in test_lines[0].items() if k != "time"), f"eval metric lines {test_lines}")
+        a, full_step = load_inference_variables(ckpt, map_location=dev)  # the CLI run's last checkpoint
+        b = res.model.state_dict()
+        diffs = {k: float((a[k] - b[k]).abs().max()) for k in a}
+        worst = max(diffs, key=diffs.get)
+        bit_equal = all(torch.equal(a[k], b[k]) for k in a)
+        print(f"resume: launches {launches}; logged losses {[r['loss/overall_loss'] for r in res_lines]} "
+              f"(straight through {[r['loss/overall_loss'] for r in lines]}); eval "
+              f"{test_lines[0]['loss/overall_loss']!r}; final parameters and BatchNorm statistics against the run "
+              f"straight through: bit-equal {bit_equal}, max abs difference {diffs[worst]:.3g} ({worst})")
+        require(res.step == full_step == steps, f"steps {res.step}, {full_step}")
+        require(bit_equal, f"resumed run differs from the run straight through: {diffs[worst]:.3g} at {worst}")
+
+        # the eval step through the kernels and through the plain versions
+        eb = make_batch(1000, TRAIN_BATCH, scene)
+        m_k = {k: float(v) for k, v in eval_step(res.model, eb, rcfg).items()}
+        m_p = {k: float(v) for k, v in eval_step(res.model, eb, rcfg, plain=True).items()}
+        bad = {k: (m_k[k], m_p[k]) for k in m_p if abs(m_k[k] - m_p[k]) > LOSS_RTOL * abs(m_p[k])}
+        print(f"eval step kernel vs plain: loss {m_k['loss/overall_loss']!r} vs {m_p['loss/overall_loss']!r}; "
+              f"largest relative gap {max(abs(m_k[k] - m_p[k]) / max(abs(m_p[k]), 1e-30) for k in m_p):.3g}")
+        require(all_finite(m_k.values()) and not bad, f"eval metrics beyond {LOSS_RTOL}: {bad}")
+        del res, a, b
+
+        # the loop against the bare step, alternating in this process: each
+        # round resumes the loop for one epoch (its own ms/step record), then
+        # runs the same epoch's batches, uploaded beforehand, through
+        # train_step back to back on a second state (host clock, the card
+        # synchronised at the end, as the loop's record); round 0 uploads
+        # the static labels and is left out of the ratio
+        acfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, log_dir=f"{root}/alt",
+                                                                  max_epoch=LOOP_ALT_ROUNDS))
+        cache = loop.TransferCache(dev)
+        bstate = create_train_state(cfg, LOOP_STEPS, cache.put(make_batch(0, TRAIN_BATCH, scene)), device=dev)
+        loop_ms, bare_ms = [], []
+        for r in range(LOOP_ALT_ROUNDS):
+            loop.train(dataclasses.replace(acfg, train=dataclasses.replace(acfg.train, stop_after_epochs=r + 1)),
+                       batches, steps_per_epoch=LOOP_STEPS, device=dev)
+            loop_ms.append(read_jsonl(f"{root}/alt/loop_metrics.jsonl")[-1]["loop/ms_per_step"])
+            bare = [cache.put(b) for b in batches(r)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for step_batch in bare:
+                train_step(bstate.model, bstate.optimizer, bstate.scheduler, step_batch, r, cfg)
+            torch.cuda.synchronize()
+            bare_ms.append((time.perf_counter() - t0) * 1e3 / LOOP_STEPS)
+            del bare, step_batch  # the last batch holds the static labels on the card
+        ratios = [lm / bm for lm, bm in zip(loop_ms[1:], bare_ms[1:])]
+        print(f"loop against the bare step, alternating, {LOOP_ALT_ROUNDS} rounds of {LOOP_STEPS} steps: loop "
+              f"ms/step {loop_ms}, bare ms/step {bare_ms}; rounds 1-{LOOP_ALT_ROUNDS - 1} loop / bare {ratios}, "
+              f"median {statistics.median(ratios):.4f} ({smi})")
+        del bstate, cache
+
+        # --synthetic_analytic: the labels expanded on the card
+        cli.main(["--max_epoch", "1", "--synthetic_steps", str(LOOP_ANALYTIC_STEPS), "--synthetic_analytic",
+                  "--batch_size", str(TRAIN_BATCH), "--num_point", str(NUM_POINTS), "--device", str(dev),
+                  "--log_dir", f"{root}/analytic"])
+        a_lines = read_jsonl(f"{root}/analytic/train_metrics.jsonl")
+        a_rec = read_jsonl(f"{root}/analytic/loop_metrics.jsonl")[0]
+        require(all_finite(a_lines[0][k] for k in a_lines[0] if k != "time") and "loop/uploads/grasp_labels" not in a_rec,
+                f"analytic run: {a_lines}, {a_rec}")
+        ab = make_batch(0, TRAIN_BATCH, SceneConfig(num_points=NUM_POINTS, analytic_labels=True,
+                                                    emit_label_tensors=False))
+        geo = ("obj_sizes", "grasp_pt_obj", "grasp_pt_mask")
+        got = expand_batch_labels({k: torch.from_numpy(ab[k]).to(dev) for k in geo}, 300, 12, 4)
+        edge = np.float32(GRASP_MAX_WIDTH)
+        n_boundary = n_differ = 0
+        for i in range(TRAIN_BATCH):
+            host = analytic_label_tensors(*(ab[k][i] for k in geo), 300, 12, 4)
+            boundary = np.abs(host[1] - edge) <= np.spacing(edge)
+            n_boundary += int(boundary.sum())
+            for key, want in zip(("grasp_labels", "grasp_widths", "grasp_tolerance"), host):
+                differ = got[key][i].cpu().numpy() != want
+                n_differ += int(differ.sum())
+                require(not (differ & ~boundary).any(), f"analytic {key}: the card differs from the host off the "
+                                                        f"width boundary at {int((differ & ~boundary).sum())} elements")
+        del got
+        print(f"analytic labels ({TRAIN_BATCH} x {tuple(ab['grasp_pt_obj'].shape[1:])} points x 300 x 12 x 4): loss "
+              f"{a_lines[0]['loss/overall_loss']!r}; card against host: {n_differ} elements differ, {n_boundary} "
+              f"elements have a width within an ulp of GRASP_MAX_WIDTH")
+
+        # the peak memory of one training step at bs=2, 4 and (when it fits) 8
+        def one_step(bs: int):
+            cfg_i = Config()
+            batch = loop.TransferCache(dev).put(make_batch(7, bs, scene))
+            state = create_train_state(cfg_i, LOOP_STEPS, batch, device=dev)
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            metrics = train_step(state.model, state.optimizer, state.scheduler, batch, 0, cfg_i)
+            require(all_finite(float(v) for v in metrics.values()), f"bs={bs}: non-finite metrics {metrics}")
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            del state, batch, metrics
+            torch.cuda.empty_cache()
+            print(f"peak max_memory_allocated of one training step at bs={bs}: {peak / 1e9:.3f} GB, "
+                  f"{(peak - resident) / 1e9:.3f} GB above what was resident before the step ({smi})")
+            return peak / 1e9
+
+        p2, p4 = one_step(TRAIN_BATCH), one_step(2 * TRAIN_BATCH)
+        est8 = p4 + (p4 - p2) * (4 * TRAIN_BATCH - 2 * TRAIN_BATCH) / (2 * TRAIN_BATCH - TRAIN_BATCH)
+        print(f"bs={4 * TRAIN_BATCH} peak extrapolated from bs={TRAIN_BATCH} and {2 * TRAIN_BATCH}: {est8:.3f} GB")
+        if est8 < PEAK_LIMIT_GB:
+            one_step(4 * TRAIN_BATCH)
+        else:
+            print(f"bs={4 * TRAIN_BATCH} not run: extrapolated peak {est8:.3f} GB >= {PEAK_LIMIT_GB}")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def main() -> int:
@@ -1259,7 +1505,7 @@ def main() -> int:
         profile_calls({name: functools.partial(infer, cloud) for name, infer in pipelines.items()})
 
     # 9. the training step
-    path_launches["train"], times["scatter"], errs["scatter"], bounds["scatter"] = train_phase(dev, smi)
+    path_launches["train"], times["scatter"], errs["scatter"], bounds["scatter"], step_ms = train_phase(dev, smi)
 
     # 10-13. the fused eval configuration; 14. the table-gather probe
     fused = fused_phase(model, dsn, cloud, smi)
@@ -1267,6 +1513,9 @@ def main() -> int:
     for d, new in zip((times, errs, bounds, device_ms), fused[1:]):
         d.update(new)
     path_launches["probe"], times["table_gather"], errs["table_gather"], bounds["table_gather"] = probe_phase()
+
+    # 15. the training loop, its resume, eval step, analytic labels and label pipelines
+    path_launches["loop"] = loop_phase(dev, smi, step_ms)
 
     table = [
         {

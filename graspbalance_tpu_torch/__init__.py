@@ -1,6 +1,6 @@
-"""graspbalance_tpu_torch: the GraspBalance eval forward, decode and serving
-pipeline in PyTorch, with hand-written CUDA kernels for an NVIDIA H100
-(sm_90a).
+"""graspbalance_tpu_torch: the GraspBalance eval forward, decode, serving
+pipeline and training in PyTorch, with hand-written CUDA kernels for an
+NVIDIA H100 (sm_90a).
 
 A port of ``graspbalance_tpu`` (JAX), which stays the reference: each module
 here mirrors the one at the same path there, keeps its channels-last
@@ -19,8 +19,12 @@ Layout:
             re-seeding), pred_decode, the point-transformer DSN
   eval/     grasp NMS, voxel downsample + collision filter, mean shift, OBS,
             and the end-to-end GraspInference pipeline
-  labels/   grasp view geometry
-  data/     synthetic scene clouds and instance labels
+  labels/   grasp view geometry, label matching,
+            the loss, the analytic synthetic labels
+  data/     synthetic scenes with their label tensors
+  train/    the config tree, the training and eval steps, the epoch loop,
+            checkpoints and metric streams
+  cli/      the training command line (python -m graspbalance_tpu_torch.cli.train)
 """
 
 __version__ = "0.1.0"

@@ -102,9 +102,11 @@ class GraspBalance(nn.Module):
         (B, N, 3), optional sa_inds, and the padded label arrays of
         labels/label_gen.py, all on the model's device. BatchNorm follows
         the module's mode: the training step puts the model in train mode
-        (batch statistics). ``plain`` runs the plain PyTorch versions of FPS
-        and the cylinder query; the gathers' backward follows the device
-        (``ops/gather.py``)."""
+        (batch statistics), the eval step in eval mode (running statistics,
+        and the width head's fused MLP, which has no backward: it runs
+        under ``torch.no_grad()``). ``plain`` runs the plain PyTorch versions of FPS,
+        the cylinder query and (eval mode) the width MLP; the gathers'
+        backward follows the device (``ops/gather.py``)."""
         ep = self.backbone(batch["point_clouds"], sa_inds=batch.get("sa_inds"), plain=plain)
         ep.update(self.graspable(ep["fp2_xyz"], ep["fp2_features"]))
         matched = match_grasp_view_and_label(

@@ -4,11 +4,13 @@
 Parameter names follow the flax tree: ``<block>.dense.weight`` (O, I),
 ``<block>.bn.weight`` / ``.bn.bias`` (flax ``scale`` / ``bias``) and the
 buffers ``<block>.bn.running_mean`` / ``.bn.running_var`` (flax
-``batch_stats``).
+``batch_stats``). ``init_flax_defaults_`` gives a fresh model the
+initialisation flax gives the JAX package's modules.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import numpy as np
@@ -123,3 +125,41 @@ class SharedMLP(nn.Sequential):
     def fold(self) -> tuple[tuple[torch.Tensor, torch.Tensor], ...]:
         """Every block's (W_eff, b_eff) with its BN folded in (eval only)."""
         return tuple(block.fold() for block in self)
+
+
+# std of a unit normal truncated to (-2, 2); flax's variance_scaling divides
+# by it so that the truncated draw keeps the target std
+TRUNC_NORMAL_STD = 0.87962566103423978
+
+
+def _truncated_normal(shape, generator: torch.Generator) -> torch.Tensor:
+    """A unit normal truncated to (-2, 2), drawn by inverting the CDF of a
+    uniform draw from ``generator`` (in float64, rounded to float32 once)."""
+    lo, hi = (0.5 * (1.0 + math.erf(x / math.sqrt(2.0))) for x in (-2.0, 2.0))
+    u = torch.rand(shape, generator=generator, dtype=torch.float64)
+    x = math.sqrt(2.0) * torch.erfinv(2.0 * (lo + u * (hi - lo)) - 1.0)
+    return x.clamp_(-2.0, 2.0).to(torch.float32)
+
+
+@torch.no_grad()
+def init_flax_defaults_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Initialise ``module`` in place as flax initialises the JAX package's
+    modules: every ``nn.Linear`` weight ``lecun_normal`` (a normal truncated
+    to +-2 std and rescaled to std 1/sqrt(fan_in), fan_in = in_features)
+    and its bias 0; every BatchNorm scale 1, offset 0, running mean 0 and
+    variance 1; every ``nn.LayerNorm`` scale 1 and offset 0. ``generator``
+    is a CPU ``torch.Generator``: the same seed gives the same weights on
+    any device."""
+    for mod in module.modules():
+        if isinstance(mod, nn.Linear):
+            std = 1.0 / math.sqrt(mod.in_features) / TRUNC_NORMAL_STD
+            mod.weight.copy_(_truncated_normal(mod.weight.shape, generator) * std)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, (BatchNorm, nn.LayerNorm)):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+            if isinstance(mod, BatchNorm):
+                mod.running_mean.zero_()
+                mod.running_var.fill_(1.0)
+    return module

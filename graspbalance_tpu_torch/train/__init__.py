@@ -1,2 +1,3 @@
-"""One training step: forward with label matching, loss, backward, Adam +
-OneCycle, BatchNorm running statistics."""
+"""Training: the config tree, the training and eval steps (forward with
+label matching, loss, backward, Adam + OneCycle, BatchNorm running
+statistics), the epoch loop with checkpoints, resume and metric streams."""

@@ -1,31 +1,73 @@
-"""One training step of GraspBalance (port of
-graspbalance_tpu/train/train_step.py: ``build_model``, ``make_optimizer`` and
-the body of ``make_train_step``, with ``backbone='drp'``,
-``label_impl='full'``).
+"""The training and eval steps of GraspBalance (port of
+graspbalance_tpu/train/train_step.py: ``build_model``, ``make_optimizer``,
+``create_train_state``, ``_maybe_expand_analytic``, and the bodies of
+``make_train_step`` and ``make_eval_step``).
 
-A step runs on the model's device: the training forward (BatchNorm on batch
-statistics at the scheduled momentum, label matching on the device),
-``get_loss``, the backward (on the card the feature gathers' backward is the
-scatter-add kernel, ``csrc/scatter.cu``), the Adam update at the OneCycle
-learning rate, and, inside the forward, the BatchNorm running-statistics
-update. Everything stays float32: TF32 is off for the matrix products.
+A training step runs on the model's device: the training forward
+(BatchNorm on batch statistics at the scheduled momentum, label matching on
+the device), ``get_loss``, the backward (on the card the feature gathers'
+backward is the scatter-add kernel, ``csrc/scatter.cu``), the Adam update at
+the OneCycle learning rate, and, inside the forward, the BatchNorm
+running-statistics update. An eval step is the reference's loss-only eval:
+running BatchNorm statistics, the training label matching, ``get_loss``'s
+metrics, without gradients. Everything stays float32: TF32 is off for the
+matrix products.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from graspbalance_tpu_torch.eval.pipeline import resolve_device
+from graspbalance_tpu_torch.labels.analytic import expand_batch_labels
 from graspbalance_tpu_torch.labels.losses import get_loss
 from graspbalance_tpu_torch.models.drp import DRP_STAGES
 from graspbalance_tpu_torch.models.graspbalance import GraspBalance
-from graspbalance_tpu_torch.nn.layers import BatchNorm, bn_momentum_schedule
+from graspbalance_tpu_torch.models.heads import CYLINDER_RADIUS, HMAX_LIST, HMIN, NUM_ANGLE
+from graspbalance_tpu_torch.nn.layers import BatchNorm, bn_momentum_schedule, init_flax_defaults_
 from graspbalance_tpu_torch.train.config import Config
+
+
+def check_supported(cfg: Config) -> None:
+    """Raise ValueError on every value of ``cfg`` the port cannot honour
+    yet, naming the ROADMAP item (Queue 1) that adds it, or for
+    ``label_impl='reduced'`` the measurement that left it out."""
+    m = cfg.model
+    heads = {"num_angle": NUM_ANGLE, "num_depth": len(HMAX_LIST), "cylinder_radius": CYLINDER_RADIUS,
+             "hmin": HMIN, "hmax_list": HMAX_LIST}
+    refused = [(f"backbone={m.backbone!r}", 7)] if m.backbone != "drp" else []
+    if m.query_order != "index":
+        refused.append((f"query_order={m.query_order!r}", 7))
+    if m.dtype != "float32":
+        refused.append((f"dtype={m.dtype!r}", 4))
+    if m.width_mlp_dtype not in (None, "float32"):
+        refused.append((f"width_mlp_dtype={m.width_mlp_dtype!r}", 4))
+    for name, value in heads.items():
+        got = getattr(m, name)
+        if (tuple(got) if name == "hmax_list" else got) != value:
+            refused.append((f"{name}={got!r} (the heads' constant is {value!r})", 7))
+    if cfg.train.n_data_shards not in (None, 1):
+        refused.append((f"n_data_shards={cfg.train.n_data_shards!r}", 7))
+    if refused:
+        raise ValueError("the port cannot honour " + "; ".join(
+            f"{what}: ROADMAP Queue 1 item {item}" for what, item in refused))
+    if m.label_impl != "full":
+        raise ValueError(
+            f"label_impl={m.label_impl!r}: the port has the 'full' label pipeline only; 'reduced' is not "
+            "ported because on the card its training step peaked at the same memory as 'full' at bs=2 "
+            "and 4 (the peak falls in the backward, after the label tensors are freed; PERF.md)"
+        )
 
 
 def build_model(cfg: Config = Config(), *, device="cuda") -> GraspBalance:
     """The model of ``cfg`` on ``device`` (a CUDA device by default, which
-    must exist; ``device="cpu"`` runs every kernel's plain version)."""
+    must exist; ``device="cpu"`` runs every kernel's plain version), with
+    torch's default initialisation: ``create_train_state`` initialises it
+    as the JAX package does. Raises on settings the port cannot honour
+    (``check_supported``)."""
+    check_supported(cfg)
     m = cfg.model
     model = GraspBalance(
         num_view=m.num_view, backbone_stages=m.backbone_stages or DRP_STAGES, num_seed=m.num_seed
@@ -33,23 +75,73 @@ def build_model(cfg: Config = Config(), *, device="cuda") -> GraspBalance:
     return model.to(resolve_device(device))
 
 
+class OneCycleLR(torch.optim.lr_scheduler.OneCycleLR):
+    """torch's OneCycleLR, except that past its last step it holds the final
+    rate, as the JAX package's optax schedule clamps (torch's raises once
+    stepped past ``total_steps``), and that its state_dict holds only plain
+    values (so that a checkpoint loads with ``weights_only=True``)."""
+
+    def get_lr(self):
+        step = self.last_epoch
+        self.last_epoch = min(step, self.total_steps - 1)
+        try:
+            return super().get_lr()
+        finally:
+            self.last_epoch = step
+
+    def state_dict(self) -> dict:
+        plain = (bool, int, float, str, list, dict, type(None))
+        return {k: v for k, v in super().state_dict().items() if isinstance(v, plain)}
+
+
 def make_optimizer(model: torch.nn.Module, cfg: Config, steps_per_epoch: int):
     """Adam (betas 0.9/0.999, eps 1e-8, L2 weight decay as optax's
-    add_decayed_weights before adam) and OneCycleLR over max_epoch *
+    add_decayed_weights before adam) and OneCycle over max_epoch *
     steps_per_epoch steps (pct_start 0.3, cosine, div_factor 25,
     final_div_factor 1e4). Adam's beta1 is not cycled: optax keeps it at
-    0.9. Returns (optimizer, scheduler)."""
+    0.9. ``cfg.train.opt_flatten`` keeps the JAX package's meaning, the
+    same math as one multi-tensor update: Adam's ``foreach``
+    implementation. Returns (optimizer, scheduler)."""
     t = cfg.train
     optimizer = torch.optim.Adam(
         model.parameters(), lr=t.learning_rate, betas=(0.9, 0.999), eps=1e-8,
-        weight_decay=t.weight_decay,
+        weight_decay=t.weight_decay, foreach=t.opt_flatten,
     )
-    scheduler = torch.optim.lr_scheduler.OneCycleLR(
+    scheduler = OneCycleLR(
         optimizer, max_lr=t.learning_rate, total_steps=max(t.max_epoch * steps_per_epoch, 1),
         pct_start=0.3, div_factor=25.0, final_div_factor=1e4, anneal_strategy="cos",
         cycle_momentum=False,
     )
     return optimizer, scheduler
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model, its optimizer and schedule, and the count of steps taken
+    (the JAX TrainState's step, params, batch_stats and opt_state)."""
+
+    model: GraspBalance
+    optimizer: torch.optim.Optimizer
+    scheduler: OneCycleLR
+    step: int = 0
+
+
+def create_train_state(cfg: Config, steps_per_epoch: int, sample_batch: dict, *, device="cuda") -> TrainState:
+    """A fresh model for training on ``device``, initialised from
+    ``cfg.train.seed`` as flax initialises the JAX package's
+    (``init_flax_defaults_``), with its optimizer and schedule.
+    ``sample_batch`` is a batch of the stream, checked to carry what the
+    step reads: the clouds, and the label tensors unless
+    ``cfg.data.analytic_labels`` has the step expand them."""
+    need = {"point_clouds", "objectness_label", "object_poses", "obj_mask", "grasp_points", "grasp_pt_obj",
+            "grasp_pt_mask"}
+    need |= {"obj_sizes"} if cfg.data.analytic_labels else {"grasp_labels", "grasp_widths", "grasp_tolerance"}
+    missing = sorted(need - sample_batch.keys())
+    if missing:
+        raise ValueError(f"the training batches lack {missing}")
+    model = build_model(cfg, device=device)
+    init_flax_defaults_(model, torch.Generator().manual_seed(cfg.train.seed))
+    return TrainState(model, *make_optimizer(model, cfg, steps_per_epoch))
 
 
 def set_bn_momentum(model: torch.nn.Module, momentum: float) -> None:
@@ -61,6 +153,16 @@ def set_bn_momentum(model: torch.nn.Module, momentum: float) -> None:
 def to_device(batch: dict, device) -> dict:
     """A batch of numpy arrays or tensors as tensors on ``device``."""
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def _maybe_expand_analytic(batch: dict, cfg: Config) -> dict:
+    """With ``cfg.data.analytic_labels``, a batch that carries only the
+    geometry arrays gets its (B, P, V, A, D) label tensors expanded on its
+    device (labels/analytic.py); any other batch is returned as it is."""
+    if not cfg.data.analytic_labels or "grasp_labels" in batch:
+        return batch
+    m = cfg.model
+    return expand_batch_labels(batch, m.num_view, m.num_angle, m.num_depth)
 
 
 def forward_loss(model: GraspBalance, batch: dict, epoch: int, cfg: Config = Config(), *, plain: bool = False):
@@ -83,15 +185,31 @@ def train_step(
     *, plain: bool = False,
 ) -> dict:
     """One step; ``batch`` (numpy arrays or tensors) is moved to the model's
-    device. Returns the metrics as 0-dim tensors on the device (no host
+    device and, with ``cfg.data.analytic_labels``, its labels expanded
+    there. Returns the metrics as 0-dim tensors on the device (no host
     sync); the parameters' .grad keep this step's gradients. ``plain`` runs
     the plain PyTorch versions of FPS and the cylinder query (to compare
     against them on the card; see ``GraspBalance.forward_train``)."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    batch = to_device(batch, next(model.parameters()).device)
+    batch = _maybe_expand_analytic(to_device(batch, next(model.parameters()).device), cfg)
     optimizer.zero_grad(set_to_none=True)
     loss, metrics = forward_loss(model, batch, epoch, cfg, plain=plain)
     loss.backward()
     optimizer.step()
     scheduler.step()
     return {k: v.detach() for k, v in metrics.items()}
+
+
+@torch.no_grad()
+def eval_step(model: GraspBalance, batch: dict, cfg: Config = Config(), *, plain: bool = False) -> dict:
+    """The loss-only eval step: the model in eval mode (running BatchNorm
+    statistics; on the card the width head's fused MLP, which has no
+    backward, hence no gradients here), label matching as in training, and
+    ``get_loss``'s metrics as 0-dim tensors on the device. ``batch`` as for
+    ``train_step``; ``plain`` runs the kernels' plain versions."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch = _maybe_expand_analytic(to_device(batch, next(model.parameters()).device), cfg)
+    model.eval()
+    ep = model.forward_train(batch, plain=plain)
+    ep["objectness_label"] = batch["objectness_label"]
+    return get_loss(ep)[1]

@@ -41,7 +41,10 @@ around every cluster size and block slice at B = 1, 3 and 5, and exact ties
 across the blocks of a cluster; for both width-MLP layouts seed counts off
 the persistent blocks' stride, 10x the usual coordinates and pre-activations
 centred on the ReLU's edge; OBS at seed counts where the sparsest scene's
-quota is not the largest; and two launches of each bit-equal. Marked ``cuda``: they skip
+quota is not the largest; and two launches of each bit-equal. For the
+training loop's pieces: the analytic labels expanded on the card against
+the host's numpy tensors and the transfer cache's identity hit. Marked
+``cuda``: they skip
 where torch has no CUDA device, and run on the card with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -58,7 +61,9 @@ relative); the class-plane selection and the table gather exactly; the
 scatter-add exactly on
 integer-valued cotangents, bit-equal between two launches, and on float
 cotangents within 1e-5 of the float64 sums (the plain index_add_ adds in
-atomic order) and within the worst-case bound of recursive f32 summation.
+atomic order) and within the worst-case bound of recursive f32 summation;
+the label expansion exactly except where a width lies within an ulp of
+GRASP_MAX_WIDTH.
 """
 
 import numpy as np
@@ -1017,3 +1022,48 @@ def test_table_gather_kernel_refuses_rows_past_shared_memory(dev):
     x = torch.zeros((2, 58113), device=dev)
     with pytest.raises(ValueError, match="shared memory"):
         table_gather(x, torch.zeros_like(x, dtype=torch.int32), 1)
+
+
+# --- the training loop's pieces on the card ------------------------------
+
+
+def _analytic_batch(num_views):
+    from graspbalance_tpu_torch.data.synthetic import SceneConfig, make_batch
+
+    return make_batch(0, 2, SceneConfig(num_points=2000, num_views=num_views, max_grasp_points=1024,
+                                        analytic_labels=True))
+
+
+@pytest.mark.parametrize("num_views", [24, 300])
+def test_expand_batch_labels_on_the_card(dev, num_views):
+    """The device expansion equals the host's numpy tensors, except where a
+    width lies within an ulp of GRASP_MAX_WIDTH."""
+    from graspbalance_tpu_torch.labels.analytic import expand_batch_labels
+    from graspbalance_tpu_torch.labels.geometry import GRASP_MAX_WIDTH
+
+    host = _analytic_batch(num_views)
+    geo = {k: torch.from_numpy(host[k]).to(dev) for k in ("obj_sizes", "grasp_pt_obj", "grasp_pt_mask")}
+    got = expand_batch_labels(geo, num_views, 12, 4)
+    edge = np.float32(GRASP_MAX_WIDTH)
+    boundary = np.abs(host["grasp_widths"] - edge) <= np.spacing(edge)
+    for key in ("grasp_labels", "grasp_widths", "grasp_tolerance"):
+        differ = got[key].cpu().numpy() != host[key]
+        assert not (differ & ~boundary).any(), (key, int(differ.sum()))
+
+
+def test_transfer_cache_identity_hit_on_the_card(dev):
+    """The same host array object uploads once (through pinned memory),
+    a new one again; a broadcast array uploads one row, expanded."""
+    from graspbalance_tpu_torch.train.loop import TransferCache
+
+    cache = TransferCache(dev)
+    static = np.broadcast_to(np.arange(12, dtype=np.float32).reshape(1, 3, 4), (5, 3, 4))
+    varied = np.ones((5, 2), np.int32)
+    first = cache.put({"static": static, "varied": varied})
+    second = cache.put({"static": static, "varied": varied.copy()})
+    assert second["static"] is first["static"] and second["varied"] is not first["varied"]
+    assert first["static"].device.type == "cuda" and first["static"].shape == (5, 3, 4)
+    assert dict(cache.uploads) == {"static": 1, "varied": 2}
+    assert cache.uploaded_bytes == 12 * 4 + 2 * 5 * 2 * 4
+    torch.cuda.synchronize()
+    assert torch.equal(first["static"].cpu(), torch.from_numpy(np.array(static)))
