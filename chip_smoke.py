@@ -118,7 +118,26 @@ eval pass and both label pipelines. Phases, each fatal on failure:
      and the card's label expansion against the host's numpy tensors
      (equal except where a width lies within an ulp of GRASP_MAX_WIDTH,
      counted); the peak memory of one training step at bs=2 and 4, and at
-     bs=8 when the extrapolation from bs=2 and 4 stays under PEAK_LIMIT_GB.
+     bs=8 when the extrapolation from bs=2 and 4 stays under PEAK_LIMIT_GB;
+ 16. the closed-loop quality gate (cli/quality_gate.py) at full width: the
+     oracle (rule-made grasps through NMS and the collision filter) on the
+     gate's GATE_EVAL_BATCHES x BATCH held-out 20,000-point scenes through
+     the collision kernel (collision launched) against its plain version
+     (keep masks exact, metrics equal) and within ORACLE_TOL of the JAX
+     package's oracle on those seeds in quality and AP; the training step in
+     bfloat16 (bs=2, the phase 9 scenes): one step through the kernels
+     against one through the plain versions from the same state (fps,
+     multicyl, scatter launched, widthmlp not; the losses within
+     BF16_LOSS_RTOL, every gradient's cosine >= BF16_GRAD_COS, parameters,
+     BatchNorm statistics and Adam's moments float32), its loss beside the
+     float32 step's from the same state, the bfloat16 loss with cuBLAS's
+     reduced-precision reduction on and off, then TRAIN_STEPS steps of each
+     dtype alternating (ms/step by host clock, a forward / backward /
+     optimizer split from CUDA events, the peak device memory of each, and
+     a torch.profiler pass over two steps of each, as phase 9's); and
+     run_gate for GATE_STEPS steps in bfloat16 at BATCH (fps, multicyl,
+     scatter, widthmlp and collision launched; untrained against trained
+     metrics, every one finite; no quality threshold at that length).
 
 Prints the kernel table as one JSON line, a row per TPU kernel (K2 and K3 are
 covered by K1's kernel): its launches on the path named in its "path" (the
@@ -131,7 +150,8 @@ work (FPS's rows also the measured latency floor of its step chain) and,
 where one PyTorch call computes the same function, that call's time; the
 rows of the kernels redesigned last (the masked FPS and the class-plane
 selection) are marked "redesigned", with their device ms (their earlier
-times are printed in phases 6 and 10); and as the last
+times are printed in phases 6 and 10); each row's "gate_launches" counts
+its launches in phase 16's short gate; and as the last
 line {"ok": true, "device": {...}}. Without CUDA it exits non-zero before
 any result. Imports nothing of JAX.
 """
@@ -189,6 +209,24 @@ LOOP_EVAL_BATCHES = 2
 LOOP_ANALYTIC_STEPS = 2  # --synthetic_analytic steps (labels expanded on the card)
 LOOP_ALT_ROUNDS = 4  # the loop against the bare step: rounds of one loop epoch, then the bare steps
 PEAK_LIMIT_GB = 76.0  # the bs=8 step runs only when its extrapolated peak is below this
+# phase 16, the closed-loop quality gate: GATE_EVAL_BATCHES eval batches of
+# BATCH scenes at the gate's seeds, the bfloat16 training step at
+# TRAIN_BATCH, a short gate of GATE_STEPS steps at BATCH
+GATE_EVAL_BATCHES = 4
+GATE_STEPS = 40
+# the JAX package's oracle at the gate's seeds (TPU v5e;
+# QUALITY_GATE_MIXED_r05.json "oracle"): the port's must lie within
+# ORACLE_TOL in quality and AP
+JAX_ORACLE = {"quality_mean": 0.9955357185431889, "ap_analytic": 0.8593523134654616, "kept_per_scene": 28.0}
+ORACLE_TOL = 0.005
+# bfloat16 step through the kernels against the plain versions: the forward
+# is the same (FPS and the query are exact), the gathers' backward sums in
+# another order in float32 and rounds to bfloat16
+BF16_LOSS_RTOL = 1e-3
+BF16_GRAD_COS = 0.99
+# biases whose gradient is 0 in exact arithmetic: a train-mode BatchNorm
+# downstream removes any per-channel shift they make
+ZERO_GRADIENT = ("fuse_multi_scale.bias", *(f"width_grouping.mlp_scale{i}.layer2.bn.bias" for i in range(4)))
 # the kernels each path must launch
 PATH_KERNELS = {
     "main": ("fps", "multicyl", "widthmlp"),
@@ -199,6 +237,9 @@ PATH_KERNELS = {
     "fused_main": ("fps", "multicyl", "mlpmax", "widthmlp_rel"),
     "fused_no_obs": ("fps", "multicyl", "mlpmax", "widthmlp_rel", "collision"),
     "fused_obs": ("fps", "multicyl", "mlpmax", "widthmlp_rel", "knn", "fps_masked", "collision"),
+    "oracle": ("collision",),
+    "train_bf16": ("fps", "multicyl", "scatter"),
+    "gate": ("fps", "multicyl", "scatter", "widthmlp", "collision"),
 }
 # one row per TPU kernel: (its number, the name of the row, the kernel
 # measured for it, the source, the TPU kernel's def, the path whose launches
@@ -1112,6 +1153,168 @@ def loop_phase(dev, smi: str, step_ms: float) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+def gate_phase(dev, smi: str) -> dict:
+    """Phase 16 (see the module docstring). Returns the launch counts of
+    the oracle, of one bfloat16 training step and of the short gate, by
+    path."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from graspbalance_tpu_torch import _build
+    from graspbalance_tpu_torch.cli.quality_gate import GATE_SEED0, gate_scene, run_gate
+    from graspbalance_tpu_torch.data.synthetic import SceneConfig, make_batch
+    from graspbalance_tpu_torch.eval.quality import evaluate_oracle_quality, oracle_keep
+    from graspbalance_tpu_torch.ops.scatter import scatter_add_plain
+    from graspbalance_tpu_torch.train.config import Config, ModelConfig
+    from graspbalance_tpu_torch.train.train_step import build_model, forward_loss, make_optimizer, to_device, train_step
+    from graspbalance_tpu_torch.weights import init_random_
+
+    out = {}
+    # the oracle on the gate's held-out scenes: the collision kernel against
+    # its plain version, then against the JAX package's numbers
+    scene = gate_scene(NUM_POINTS)
+    kw = dict(num_batches=GATE_EVAL_BATCHES, batch_size=BATCH, seed0=GATE_SEED0, device=dev)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    oracle = evaluate_oracle_quality(scene, **kw)
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t0
+    out["oracle"] = dict(_build.launches)
+    require(out["oracle"]["collision"] == GATE_EVAL_BATCHES, f"oracle: launches {out['oracle']}")
+    oracle_p = evaluate_oracle_quality(scene, plain=True, **kw)
+    require(oracle == oracle_p, f"oracle: kernel {oracle} against plain {oracle_p}")
+    kept = 0
+    for i in range(GATE_EVAL_BATCHES):
+        batch = make_batch(GATE_SEED0 + i, BATCH, scene)
+        _, keep = oracle_keep(batch, device=dev)
+        _, keep_p = oracle_keep(batch, device=dev, plain=True)
+        require(np.array_equal(keep, keep_p), f"oracle batch {i}: keep masks differ at {np.argwhere(keep != keep_p)}")
+        kept += int(keep.sum())
+    gaps = {k: oracle[k] - JAX_ORACLE[k] for k in JAX_ORACLE}
+    print(f"oracle, {GATE_EVAL_BATCHES} x {BATCH} scenes from seed {GATE_SEED0}: {json.dumps(oracle)} "
+          f"({oracle_s:.1f} s; launches {out['oracle']}); keep masks of the kernel equal to the plain version's "
+          f"({kept} kept); against the JAX package's oracle (TPU v5e, QUALITY_GATE_MIXED_r05.json) "
+          f"{json.dumps(JAX_ORACLE)}: differences {json.dumps(gaps)}")
+    for key in ("quality_mean", "ap_analytic"):
+        require(abs(gaps[key]) <= ORACLE_TOL, f"oracle {key}: {oracle[key]} against the JAX package's "
+                f"{JAX_ORACLE[key]} (tolerance {ORACLE_TOL})")
+
+    # the training step in bfloat16, through the kernels and the plain
+    # versions, from the same state; the float32 step beside it
+    cfg16 = Config(model=ModelConfig(dtype="bfloat16"))
+    cfg32 = Config()
+    batch = to_device(make_batch(SEED, TRAIN_BATCH, SceneConfig(num_points=NUM_POINTS)), dev)
+    models = {"bf16": init_random_(build_model(cfg16, device=dev), SEED)}
+    models["bf16_plain"] = copy.deepcopy(models["bf16"])
+    models["f32"] = init_random_(build_model(cfg32, device=dev), SEED)
+    cfgs = {"bf16": cfg16, "bf16_plain": cfg16, "f32": cfg32}
+    opts = {k: make_optimizer(m, cfgs[k], STEPS_PER_EPOCH) for k, m in models.items()}
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    m16 = {k: float(v) for k, v in train_step(models["bf16"], *opts["bf16"], batch, 0, cfg16).items()}
+    torch.cuda.synchronize()
+    out["train_bf16"] = dict(_build.launches)
+    require(all(out["train_bf16"][k] > 0 for k in PATH_KERNELS["train_bf16"]) and out["train_bf16"]["widthmlp"] == 0,
+            f"bf16 training step: launches {out['train_bf16']}; needs fps, multicyl, scatter > 0 and widthmlp == 0")
+    with gather_backward(scatter_add_plain):
+        m16p = {k: float(v) for k, v in
+                train_step(models["bf16_plain"], *opts["bf16_plain"], batch, 0, cfg16, plain=True).items()}
+    m32 = {k: float(v) for k, v in train_step(models["f32"], *opts["f32"], batch, 0, cfg32).items()}
+    for name, metrics in (("kernel", m16), ("plain", m16p), ("float32", m32)):
+        require(all_finite(metrics.values()), f"bf16 phase, {name} step: non-finite metrics {metrics}")
+    loss_k, loss_p, loss_32 = m16["loss/overall_loss"], m16p["loss/overall_loss"], m32["loss/overall_loss"]
+    require(abs(loss_k - loss_p) <= BF16_LOSS_RTOL * abs(loss_p), f"bf16 loss: kernel {loss_k} vs plain {loss_p}")
+    cosines = {}
+    for (name, p), (_, q) in zip(models["bf16"].named_parameters(), models["bf16_plain"].named_parameters()):
+        a, b = p.grad.double().flatten(), q.grad.double().flatten()
+        cosines[name] = float(a @ b / (a.norm() * b.norm()).clamp_min(1e-30))
+    # biases whose gradient is 0 in exact arithmetic (a train-mode BatchNorm
+    # follows them): rounding noise on both sides, printed apart
+    noise = {k: cosines.pop(k) for k in ZERO_GRADIENT}
+    worst = min(cosines, key=cosines.get)
+    require(cosines[worst] >= BF16_GRAD_COS, f"bf16 gradient of {worst}: cosine {cosines[worst]:.5f}")
+    m = models["bf16"]
+    kinds = {t.dtype for t in m.state_dict().values()}
+    kinds |= {v.dtype for st in opts["bf16"][0].state.values() for k, v in st.items() if k != "step"}
+    require(kinds == {torch.float32}, f"bf16 step: parameters, statistics or Adam moments in {kinds}")
+    print(f"train step bf16 bs={TRAIN_BATCH} kernel vs plain: launches {out['train_bf16']}; loss {loss_k!r} vs "
+          f"{loss_p!r}; gradient cosines: smallest {cosines[worst]:.6f} ({worst}), median "
+          f"{statistics.median(cosines.values()):.6f} (the zero-gradient biases, noise: "
+          f"{min(noise.values()):.3f}-{max(noise.values()):.3f}); state float32; the float32 step's loss from the same state "
+          f"{loss_32!r} (bf16 - f32 {loss_k - loss_32:+.5f})")
+    del models["bf16_plain"], opts["bf16_plain"]
+
+    # cuBLAS's reduced-precision (bfloat16) split-K reduction, on and off,
+    # from the same state (the step keeps it off)
+    probe = copy.deepcopy(models["bf16"])
+    flag = {}
+    for on in (False, True, False, True):
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = on
+        with torch.no_grad():
+            loss = forward_loss(probe, batch, 0, cfg16)[0]
+        flag.setdefault(on, []).append(float(loss))
+        probe.load_state_dict(models["bf16"].state_dict())
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    print(f"bf16 loss with cuBLAS's reduced-precision reduction off {flag[False]}, on {flag[True]}")
+    del probe
+
+    # the two dtypes' steps, alternating
+    iters = {"bf16": [], "f32": []}
+    for _ in range(TRAIN_STEPS):
+        for k in iters:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            loss = train_step(models[k], *opts[k], batch, 0, cfgs[k])["loss/overall_loss"]
+            torch.cuda.synchronize()
+            iters[k].append(time.perf_counter() - t1)
+            require(all_finite([float(loss)]), f"{k} step: loss {float(loss)}")
+    for k in iters:
+        model, (opt, sched) = models[k], opts[k]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        opt.zero_grad(set_to_none=True)
+        ev[0].record()
+        loss, _ = forward_loss(model, batch, 0, cfgs[k])
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.step()
+        sched.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        split = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+        ms = sorted(t * 1e3 for t in iters[k])
+        print(f"train step {k} bs={TRAIN_BATCH}: median {statistics.median(ms):.3f} ms/step (min {ms[0]:.3f}, "
+              f"max {ms[-1]:.3f} over {len(ms)} steps, alternating with the other dtype); split (CUDA events) "
+              f"forward+loss {split[0]:.3f} ms, backward {split[1]:.3f} ms, optimizer {split[2]:.3f} ms; peak "
+              f"device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB ({smi})")
+    profile_calls({f"train_{k}": functools.partial(train_step, models[k], *opts[k], batch, 0, cfgs[k])
+                   for k in iters}, calls=2)
+    del models, opts, batch
+
+    # a short gate in bfloat16
+    lines = []
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    record = run_gate(GATE_STEPS, BATCH, "bfloat16", eval_batches=GATE_EVAL_BATCHES, num_points=NUM_POINTS,
+                      log=lines.append, device=dev)
+    torch.cuda.synchronize()
+    gate_s = time.perf_counter() - t0
+    out["gate"] = dict(_build.launches)
+    require(all(out["gate"][k] > 0 for k in PATH_KERNELS["gate"]), f"gate: launches {out['gate']}")
+    for key in ("untrained", "trained", "oracle", "trained_xdist_mild", "oracle_xdist_mild", "trained_xdist",
+                "oracle_xdist"):
+        require(all_finite(record[key].values()), f"gate {key}: {record[key]}")
+    require(all_finite([record["first_loss"], record["last_loss"], record["gate_ratio"]]), f"gate: {record}")
+    print(f"gate, {GATE_STEPS} steps bf16 at bs={BATCH} ({gate_s:.1f} s; launches {out['gate']}): " + json.dumps(record))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1517,6 +1720,9 @@ def main() -> int:
     # 15. the training loop, its resume, eval step, analytic labels and label pipelines
     path_launches["loop"] = loop_phase(dev, smi, step_ms)
 
+    # 16. the closed-loop quality gate: the oracle, the bfloat16 step, a short gate
+    path_launches.update(gate_phase(dev, smi))
+
     table = [
         {
             "name": name,
@@ -1535,6 +1741,7 @@ def main() -> int:
             "library_ms": times[measured][2],
             **({"latency_floor_ms": fps_floor_ms} if measured == "fps" else {}),
             **({"redesigned": True, "device_ms": device_ms[measured]} if measured in REDESIGNED else {}),
+            "gate_launches": path_launches["gate"][measured],
         }
         for k_num, name, measured, source, replaces, path in KERNEL_TABLE
     ]

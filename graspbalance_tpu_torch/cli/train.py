@@ -7,11 +7,12 @@ Trains on synthetic scenes (data/synthetic.py): by default with the static
 labels (one base label tensor shared by every scene), with
 ``--synthetic_varied_labels`` a roll of it per scene, with
 ``--synthetic_analytic`` the analytic labels, expanded on the device. Runs on
-the card unless ``--device cpu``. Refused until the port has them:
+the card unless ``--device cpu``. ``--dtype bfloat16`` trains in bfloat16
+compute (``--width_mlp_dtype bfloat16`` only the width head's MLPs); both
+are recorded in config.json. Refused until the port has them:
 ``--dataset_root`` (GraspNet-1B, ROADMAP Queue 1 item 6) here, and what the
-config check refuses (``train_step.check_supported``): ``--dtype bfloat16``
-and ``--width_mlp_dtype bfloat16`` (item 4), ``--backbone pointnet2`` (item
-7).
+config check refuses (``train_step.check_supported``): ``--backbone
+pointnet2`` (item 7).
 """
 
 from __future__ import annotations
@@ -36,8 +37,9 @@ def parse_args(argv=None):
     p.add_argument("--ncm", action="store_true", default=True, help="noisy-clean mix")
     p.add_argument("--no-ncm", dest="ncm", action="store_false")
     p.add_argument("--backbone", default="drp", choices=["drp", "pointnet2"], help="pointnet2 is refused")
-    p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"], help="bfloat16 is refused")
-    p.add_argument("--width_mlp_dtype", default=None, choices=[None, "bfloat16"], help="bfloat16 is refused")
+    p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"], help="compute dtype")
+    p.add_argument("--width_mlp_dtype", default=None, choices=[None, "bfloat16"],
+                   help="the width head's MLPs' compute dtype (default: --dtype)")
     p.add_argument("--synthetic_steps", type=int, default=50, help="steps/epoch on synthetic data")
     p.add_argument("--synthetic_analytic", action="store_true",
                    help="labels an analytic function of the scene geometry, expanded on the device")

@@ -29,14 +29,18 @@ class LocalAggregation(nn.Module):
     ``nsample >= fused_min_nsample`` (``nn.layers.fused_eval_ok``): the
     grouped ``dp | fj`` rows (two gathers, never concatenated) go through the
     BN-folded block and the max over K in one kernel (ops/mlpmax.py). It
-    runs the block on N x K rows, where the lifted form runs it on N."""
+    runs the block on N x K rows, where the lifted form runs it on N. In
+    bfloat16 (``dtype``) the coordinates are cast to the features' dtype
+    where they join them, and the block runs in ``dtype``."""
 
-    def __init__(self, channels: int, radius: float, nsample: int, *, fused_min_nsample: int | None = None):
+    def __init__(self, channels: int, radius: float, nsample: int, *, fused_min_nsample: int | None = None,
+                 dtype=torch.float32):
         super().__init__()
         self.radius = radius
         self.nsample = nsample
         self.fused_min_nsample = fused_min_nsample
-        self.conv = MLPBlock(3 + channels, channels)
+        self.dtype = dtype
+        self.conv = MLPBlock(3 + channels, channels, dtype=dtype)
 
     def forward(self, xyz: torch.Tensor, feats: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
         """``plain`` runs the fused branch's kernel as its plain version."""
@@ -47,8 +51,9 @@ class LocalAggregation(nn.Module):
             w0, b0 = self.conv.fold()
             fused = mlpmax.mlp_max_fused_plain if plain else mlpmax.mlp_max_fused
             return fused((dp, fj), (((w0[:3], w0[3:]), b0),))
-        e = self.conv(torch.cat([xyz, feats], dim=-1), stage="dense")
-        cw = self.conv(torch.cat([xyz, torch.zeros_like(feats)], dim=-1), stage="dense")
+        xyz_f = xyz.to(feats.dtype)
+        e = self.conv(torch.cat([xyz_f, feats], dim=-1), stage="dense")
+        cw = self.conv(torch.cat([xyz_f, torch.zeros_like(feats)], dim=-1), stage="dense")
         pre = ops.group_points(e, idx) - cw.unsqueeze(2)
         return self.conv(pre, stage="post").amax(dim=2)
 
@@ -57,13 +62,16 @@ EXPANSION = 4  # InvResMLP's pointwise width multiple
 
 
 class InvResMLP(nn.Module):
-    """LocalAggregation -> [C -> 4C (BN+ReLU) -> C (BN)] -> +residual -> ReLU."""
+    """LocalAggregation -> [C -> 4C (BN+ReLU) -> C (BN)] -> +residual -> ReLU,
+    in ``dtype``."""
 
-    def __init__(self, channels: int, radius: float, nsample: int, *, fused_min_nsample: int | None = None):
+    def __init__(self, channels: int, radius: float, nsample: int, *, fused_min_nsample: int | None = None,
+                 dtype=torch.float32):
         super().__init__()
-        self.local_agg = LocalAggregation(channels, radius, nsample, fused_min_nsample=fused_min_nsample)
-        self.pw1 = MLPBlock(channels, channels * EXPANSION)
-        self.pw2 = MLPBlock(channels * EXPANSION, channels, act=False)
+        self.local_agg = LocalAggregation(channels, radius, nsample, fused_min_nsample=fused_min_nsample,
+                                          dtype=dtype)
+        self.pw1 = MLPBlock(channels, channels * EXPANSION, dtype=dtype)
+        self.pw2 = MLPBlock(channels * EXPANSION, channels, act=False, dtype=dtype)
 
     def forward(self, xyz: torch.Tensor, feats: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
         f = self.pw2(self.pw1(self.local_agg(xyz, feats, plain=plain)))
@@ -86,22 +94,23 @@ class DRP(nn.Module):
     JAX package's ``fused_eval_ok``: None (the default) keeps it off; 0 fuses
     every set abstraction and local aggregation (``GB_FORCE_FUSED_EVAL``'s
     set), 64 those with K >= 64 (``GB_FUSED_BACKBONE``'s set). It applies in
-    eval mode to float32 only."""
+    eval mode to float32 only. ``dtype`` is every module's compute dtype."""
 
-    def __init__(self, stages=DRP_STAGES, num_seed: int = 1024, *, fused_backbone_min_nsample: int | None = None):
+    def __init__(self, stages=DRP_STAGES, num_seed: int = 1024, *, fused_backbone_min_nsample: int | None = None,
+                 dtype=torch.float32):
         super().__init__()
         self.stages = tuple(stages)
         self.num_seed = num_seed
-        fused = fused_backbone_min_nsample
+        kw = dict(fused_min_nsample=fused_backbone_min_nsample, dtype=dtype)
         c = 0  # the clouds carry xyz only
         for i, (_, radius, nsample, mlp, n_blocks, b_radius, b_nsample) in enumerate(self.stages):
-            self.add_module(f"sa{i + 1}", SetAbstraction(c, radius, nsample, mlp, fused_min_nsample=fused))
+            self.add_module(f"sa{i + 1}", SetAbstraction(c, radius, nsample, mlp, **kw))
             c = mlp[-1]
             for j in range(n_blocks):
-                self.add_module(f"block{i + 1}_{j}", InvResMLP(c, b_radius, b_nsample, fused_min_nsample=fused))
+                self.add_module(f"block{i + 1}_{j}", InvResMLP(c, b_radius, b_nsample, **kw))
         widths = [s[3][-1] for s in self.stages]
-        self.fp1 = FeaturePropagation(widths[3] + widths[2], (256, 256))
-        self.fp2 = FeaturePropagation(256 + widths[1], (256, 256))
+        self.fp1 = FeaturePropagation(widths[3] + widths[2], (256, 256), dtype=dtype)
+        self.fp2 = FeaturePropagation(256 + widths[1], (256, 256), dtype=dtype)
 
     def forward(self, pointcloud: torch.Tensor, *, sa_inds=None, plain: bool = False) -> dict:
         """pointcloud (B, N, 3); sa_inds optional (B, npoint_1) FPS indices.

@@ -36,6 +36,7 @@ from graspbalance_tpu_torch.models.heads import (
     MultiScaleWidthGrouping,
     ToleranceHead,
 )
+from graspbalance_tpu_torch.nn.layers import Dense
 from graspbalance_tpu_torch.ops.gather import gather_points
 from graspbalance_tpu_torch.ops.interpolate import interpolate_features
 
@@ -48,7 +49,12 @@ class GraspBalance(nn.Module):
     (see ``DRP``) fuses the backbone's grouping modules, and
     ``width_impl='fused_pallas'`` runs the width head on the query's
     gripper-frame coordinates (``MultiScaleWidthGrouping``'s ``impl``). Both
-    keep the same variables."""
+    keep the same variables.
+
+    ``dtype`` is the compute dtype of every module (float32 or bfloat16;
+    parameters and BatchNorm statistics stay float32, the heads' outputs are
+    float32); ``width_mlp_dtype`` overrides it for the width head's
+    per-scale MLPs alone."""
 
     def __init__(
         self,
@@ -58,15 +64,18 @@ class GraspBalance(nn.Module):
         num_seed: int = 1024,
         fused_backbone_min_nsample: int | None = None,
         width_impl: str = "auto",
+        dtype=torch.float32,
+        width_mlp_dtype=None,
     ):
         super().__init__()
-        self.backbone = DRP(backbone_stages, num_seed=num_seed, fused_backbone_min_nsample=fused_backbone_min_nsample)
-        self.graspable = GraspableDetection(num_view)
-        self.width_grouping = MultiScaleWidthGrouping(impl=width_impl)
-        self.fuse_multi_scale = nn.Linear(len(SCALES) * 256, 256)
-        self.gate_fusion = nn.Linear(SEED_FEATURES, 256)
-        self.grasp_params = GraspParametersHead()
-        self.tolerance = ToleranceHead()
+        self.backbone = DRP(backbone_stages, num_seed=num_seed, fused_backbone_min_nsample=fused_backbone_min_nsample,
+                            dtype=dtype)
+        self.graspable = GraspableDetection(num_view, dtype=dtype)
+        self.width_grouping = MultiScaleWidthGrouping(impl=width_impl, dtype=width_mlp_dtype or dtype)
+        self.fuse_multi_scale = Dense(len(SCALES) * 256, 256, dtype=dtype)
+        self.gate_fusion = Dense(SEED_FEATURES, 256, dtype=dtype)
+        self.grasp_params = GraspParametersHead(dtype=dtype)
+        self.tolerance = ToleranceHead(dtype=dtype)
 
     @torch.no_grad()
     def forward(
@@ -121,7 +130,7 @@ class GraspBalance(nn.Module):
         seed_features = ep["fp2_features"]
         vp = self.width_grouping(centers, ep["input_xyz"], rot, plain=plain)  # (B, Ns, D, 4*256)
         gate = torch.sigmoid(self.gate_fusion(seed_features))
-        vp_features = self.fuse_multi_scale(vp) + (gate * seed_features).unsqueeze(2)
+        vp_features = self.fuse_multi_scale(vp) + (gate * seed_features.to(gate.dtype)).unsqueeze(2)
         ep.update(self.grasp_params(vp_features))
         ep.update(self.tolerance(vp_features))
         return ep

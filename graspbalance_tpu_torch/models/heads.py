@@ -7,6 +7,10 @@ Output layouts (channels-last):
   grasp_angle_cls_pred  (B, Ns, A, D)
   grasp_width_pred      (B, Ns, A, D)
   grasp_tolerance_pred  (B, Ns, A, D)
+
+Each head computes in its ``dtype`` and returns these outputs in float32
+(the JAX heads cast them), so that label matching, the loss and decode run
+in float32.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from graspbalance_tpu_torch.labels.geometry import (
     batch_viewpoint_params_to_matrix,
     generate_grasp_views,
 )
-from graspbalance_tpu_torch.nn.layers import MLPBlock, SharedMLP
+from graspbalance_tpu_torch.nn.layers import Dense, MLPBlock, SharedMLP
 from graspbalance_tpu_torch.ops.gather import group_points
 from graspbalance_tpu_torch.ops.multicyl import multi_cylinder_group, multi_cylinder_group_plain
 from graspbalance_tpu_torch.ops.widthmlp import (
@@ -42,22 +46,22 @@ class GraspableDetection(nn.Module):
     """Objectness + per-view score head: 256 -> 256 -> (2+V) -> (2+V); picks
     the top view per seed and builds its approach rotation (angle 0)."""
 
-    def __init__(self, num_view: int = 300):
+    def __init__(self, num_view: int = 300, *, dtype=torch.float32):
         super().__init__()
         self.num_view = num_view
-        self.conv1 = MLPBlock(SEED_FEATURES, SEED_FEATURES)
-        self.conv2 = MLPBlock(SEED_FEATURES, 2 + num_view)
-        self.conv3 = nn.Linear(2 + num_view, 2 + num_view)
+        self.conv1 = MLPBlock(SEED_FEATURES, SEED_FEATURES, dtype=dtype)
+        self.conv2 = MLPBlock(SEED_FEATURES, 2 + num_view, dtype=dtype)
+        self.conv3 = Dense(2 + num_view, 2 + num_view, dtype=dtype)
 
     def forward(self, seed_xyz: torch.Tensor, seed_features: torch.Tensor) -> dict:
         x = self.conv3(self.conv2(self.conv1(seed_features)))
-        view_score = x[..., 2:]
+        view_score = x[..., 2:].float()
         top_view_scores, top_view_inds = torch.max(view_score, dim=-1)
         templates = generate_grasp_views(self.num_view, device=x.device)
         vp_xyz = templates[top_view_inds]  # (B, Ns, 3)
         vp_rot = batch_viewpoint_params_to_matrix(-vp_xyz, torch.zeros_like(vp_xyz[..., 0]))
         return {
-            "objectness_score": x[..., :2],
+            "objectness_score": x[..., :2].float(),
             "view_score": view_score,
             "grasp_top_view_inds": top_view_inds.to(torch.int32),
             "grasp_top_view_score": top_view_scores,
@@ -88,21 +92,27 @@ class MultiScaleWidthGrouping(nn.Module):
     K run on them (ops/widthmlp.py:width_mlp_fused), in train mode each
     scale's SharedMLP and the max.
 
-    Returns (B, Ns, D, n_scales * 256)."""
+    The fused MLPs are float32: with ``dtype`` bfloat16 the eval mode takes
+    the train mode's path (the gripper-frame coordinates in float32, cast
+    to bfloat16 for each scale's SharedMLP), as the JAX package does.
+
+    Returns (B, Ns, D, n_scales * 256) in ``dtype``."""
 
     IMPLS = ("auto", "fused_pallas")
 
-    def __init__(self, *, nsample: int = 64, mlp: Sequence[int] = (64, 128, 256), impl: str = "auto"):
+    def __init__(self, *, nsample: int = 64, mlp: Sequence[int] = (64, 128, 256), impl: str = "auto",
+                 dtype=torch.float32):
         super().__init__()
         if impl not in self.IMPLS:
             raise ValueError(f"impl must be one of {self.IMPLS}, got {impl!r}")
         self.impl = impl
         self.nsample = nsample
+        self.dtype = dtype
         self.radii = tuple(s * CYLINDER_RADIUS for s in SCALES)
         self.hmin = HMIN
         self.hmax_list = HMAX_LIST
         for ri in range(len(SCALES)):
-            self.add_module(f"mlp_scale{ri}", SharedMLP(3, mlp))
+            self.add_module(f"mlp_scale{ri}", SharedMLP(3, mlp, dtype=dtype))
 
     @torch.no_grad()
     def folded_weights(self):
@@ -110,27 +120,31 @@ class MultiScaleWidthGrouping(nn.Module):
         (eval only: the kernel has no backward)."""
         return tuple(getattr(self, f"mlp_scale{ri}").fold() for ri in range(len(self.radii)))
 
+    def _scale_mlps(self, rel: torch.Tensor) -> torch.Tensor:
+        """Each scale's SharedMLP in ``dtype`` and the max over K on the
+        gripper-frame coordinates rel (B, R, H, Ns, K, 3) float32."""
+        feats = [getattr(self, f"mlp_scale{ri}")(rel[:, ri].to(self.dtype)).amax(dim=3) for ri in range(rel.shape[1])]
+        return torch.cat(feats, dim=-1).permute(0, 2, 1, 3)  # (B, Ns, D, 4C)
+
     def forward(self, seed_xyz, cloud_xyz, vp_rot, *, plain: bool = False) -> torch.Tensor:
         cloud_xyz, seed_xyz, vp_rot = (t.contiguous() for t in (cloud_xyz, seed_xyz, vp_rot))
         query = multi_cylinder_group_plain if plain else multi_cylinder_group
+        unfused = self.training or self.dtype != torch.float32
         if self.impl == "fused_pallas":
             _, rel = query(
                 cloud_xyz.detach(), seed_xyz.detach(), vp_rot.detach(),
                 self.radii, self.hmin, self.hmax_list, self.nsample, emit_rel=True,
             )  # (B, R, H, Ns, K, 3)
-            if self.training:
-                feats = [getattr(self, f"mlp_scale{ri}")(rel[:, ri]).amax(dim=3) for ri in range(rel.shape[1])]
-                return torch.cat(feats, dim=-1).permute(0, 2, 1, 3)  # (B, Ns, D, 4C)
+            if unfused:
+                return self._scale_mlps(rel)
             mlp = width_mlp_fused_plain if plain else width_mlp_fused
             return mlp(rel, self.folded_weights()).permute(0, 2, 1, 3)
         idx, _ = query(cloud_xyz, seed_xyz, vp_rot, self.radii, self.hmin, self.hmax_list, self.nsample)
         b, n_r, n_h, ns, k = idx.shape
-        if self.training:
+        if unfused:
             grouped = group_points(cloud_xyz, idx.reshape(b, n_r * n_h * ns, k))
             rel = grouped.reshape(b, n_r, n_h, ns, k, 3) - seed_xyz[:, None, None, :, None, :]
-            rel = torch.einsum("brhskj,bsji->brhski", rel, vp_rot)  # R^T (p - c)
-            feats = [getattr(self, f"mlp_scale{ri}")(rel[:, ri]).amax(dim=3) for ri in range(n_r)]
-            return torch.cat(feats, dim=-1).permute(0, 2, 1, 3)  # (B, Ns, D, 4C)
+            return self._scale_mlps(torch.einsum("brhskj,bsji->brhski", rel, vp_rot))  # R^T (p - c)
         idx_t = idx.permute(0, 3, 1, 2, 4).reshape(b, ns * n_r * n_h, k)  # (B, S*R*H, K)
         grouped = group_points(cloud_xyz, idx_t).reshape(b, ns, n_r, n_h, k, 3)
         mlp = width_mlp_fused_rot_plain if plain else width_mlp_fused_rot
@@ -140,16 +154,16 @@ class MultiScaleWidthGrouping(nn.Module):
 class GraspParametersHead(nn.Module):
     """Score / angle-class / width head: (B, Ns, D, 256) -> dict of (B, Ns, A, D)."""
 
-    def __init__(self):
+    def __init__(self, *, dtype=torch.float32):
         super().__init__()
-        self.conv1 = MLPBlock(256, 128)
-        self.conv2 = MLPBlock(128, 128)
-        self.conv3 = nn.Linear(128, 3 * NUM_ANGLE)
+        self.conv1 = MLPBlock(256, 128, dtype=dtype)
+        self.conv2 = MLPBlock(128, 128, dtype=dtype)
+        self.conv3 = Dense(128, 3 * NUM_ANGLE, dtype=dtype)
 
     def forward(self, vp_features: torch.Tensor) -> dict:
         x = self.conv3(self.conv2(self.conv1(vp_features)))
         b, ns, d, _ = x.shape
-        x = x.reshape(b, ns, d, 3, NUM_ANGLE).movedim(2, -1)  # (B, Ns, 3, A, D)
+        x = x.reshape(b, ns, d, 3, NUM_ANGLE).float().movedim(2, -1)  # (B, Ns, 3, A, D)
         return {
             "grasp_score_pred": x[:, :, 0],
             "grasp_angle_cls_pred": x[:, :, 1],
@@ -160,12 +174,12 @@ class GraspParametersHead(nn.Module):
 class ToleranceHead(nn.Module):
     """Per-angle tolerance head: (B, Ns, D, 256) -> (B, Ns, A, D)."""
 
-    def __init__(self):
+    def __init__(self, *, dtype=torch.float32):
         super().__init__()
-        self.conv1 = MLPBlock(256, 128)
-        self.conv2 = MLPBlock(128, 128)
-        self.conv3 = nn.Linear(128, NUM_ANGLE)
+        self.conv1 = MLPBlock(256, 128, dtype=dtype)
+        self.conv2 = MLPBlock(128, 128, dtype=dtype)
+        self.conv3 = Dense(128, NUM_ANGLE, dtype=dtype)
 
     def forward(self, vp_features: torch.Tensor) -> dict:
         x = self.conv3(self.conv2(self.conv1(vp_features)))
-        return {"grasp_tolerance_pred": x.movedim(2, -1)}
+        return {"grasp_tolerance_pred": x.float().movedim(2, -1)}

@@ -6,6 +6,13 @@ Parameter names follow the flax tree: ``<block>.dense.weight`` (O, I),
 buffers ``<block>.bn.running_mean`` / ``.bn.running_var`` (flax
 ``batch_stats``). ``init_flax_defaults_`` gives a fresh model the
 initialisation flax gives the JAX package's modules.
+
+Compute dtype: each module takes a ``dtype`` (float32 or bfloat16), as its
+flax twin does. Parameters, BatchNorm statistics and their updates stay
+float32; a ``Dense`` casts its input and parameters to ``dtype`` at each
+call (flax ``Dense(dtype, param_dtype=float32)``), and a ``BatchNorm``
+computes batch statistics in float32 and normalises in ``dtype``. No
+autocast: the casts are where the JAX package makes them.
 """
 
 from __future__ import annotations
@@ -15,7 +22,15 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(name: str | None) -> torch.dtype | None:
+    """The torch dtype of a config's dtype name (None stays None)."""
+    return None if name is None else DTYPES[name]
 
 
 def bn_momentum_schedule(
@@ -36,12 +51,17 @@ class BatchNorm(nn.Module):
     biased and computed as mean(x^2) - mean^2 (as the JAX package does), and
     updates the running statistics in the torch-momentum convention,
     ``running = (1 - m) * running + m * batch``, with the unbiased variance
-    n / (n - 1) * var; ``momentum`` is ``m``, set by the training step."""
+    n / (n - 1) * var; ``momentum`` is ``m``, set by the training step.
+    The statistics are in the buffers' dtype (float32) whatever ``dtype``:
+    a bfloat16 input is read as float32 for them, and the normalisation and
+    the affine run in bfloat16 on the statistics and parameters cast to
+    it."""
 
-    def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1):
+    def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1, *, dtype=torch.float32):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -52,16 +72,21 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         else:
             axes = tuple(range(x.ndim - 1))
-            mean = x.mean(dim=axes)
-            var = (x * x).mean(dim=axes) - mean * mean
+            xf = x.to(self.running_mean.dtype)
+            mean = xf.mean(dim=axes)
+            var = (xf * xf).mean(dim=axes) - mean * mean
             n = x.numel() // x.shape[-1]
             m = np.float32(self.momentum)  # both factors rounded to f32, as in JAX
             keep, m = float(np.float32(1.0) - m), float(m)
             with torch.no_grad():
                 self.running_mean.copy_(keep * self.running_mean + m * mean)
                 self.running_var.copy_(keep * self.running_var + m * (var * (n / max(n - 1, 1))))
-        inv = self.weight * (1.0 / torch.sqrt(var + self.eps))
-        return (x - mean) * inv + self.bias
+        if self.dtype == torch.float32:
+            inv = self.weight * (1.0 / torch.sqrt(var + self.eps))
+            return (x.to(mean.dtype) - mean) * inv + self.bias
+        d = self.dtype
+        inv = self.weight.to(d) * (1.0 / torch.sqrt(var + self.eps)).to(d)
+        return (x.to(d) - mean.to(d)) * inv + self.bias.to(d)
 
     def fold(self, dense_weight: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """Fold this BN into the preceding bias-free dense layer:
@@ -75,23 +100,41 @@ def fused_eval_ok(module: nn.Module, x: torch.Tensor) -> bool:
     """Gate of a grouping module's fused eval branch (the explicit form of
     graspbalance_tpu/ops/pallas/mlpmax_kernel.py:fused_eval_ok): the module
     has ``fused_min_nsample`` set and ``nsample >= fused_min_nsample``, it is
-    in eval mode, and ``x`` is float32."""
+    in eval mode, its compute dtype and ``x`` are float32."""
     return (
         module.fused_min_nsample is not None
         and module.nsample >= module.fused_min_nsample
         and not module.training
+        and module.dtype == torch.float32
         and x.dtype == torch.float32
     )
 
 
-class MLPBlock(nn.Module):
-    """Linear + BN + optional ReLU ('conv-norm-act' order). The linear layer
-    has no bias: BN follows it, as in the reference."""
+class Dense(nn.Linear):
+    """``nn.Linear`` computing in ``dtype``: its float32 parameters and its
+    input are cast to ``dtype`` at each call (flax ``nn.Dense(dtype,
+    param_dtype=float32)``); the output is in ``dtype``."""
 
-    def __init__(self, in_features: int, features: int, *, act: bool = True):
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, *, dtype=torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.dtype
+        if d == torch.float32:
+            return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        bias = None if self.bias is None else self.bias.to(d)
+        return F.linear(x.to(d), self.weight.to(d), bias)
+
+
+class MLPBlock(nn.Module):
+    """Linear + BN + optional ReLU ('conv-norm-act' order) in ``dtype``. The
+    linear layer has no bias: BN follows it, as in the reference."""
+
+    def __init__(self, in_features: int, features: int, *, act: bool = True, dtype=torch.float32):
         super().__init__()
-        self.dense = nn.Linear(in_features, features, bias=False)
-        self.bn = BatchNorm(features)
+        self.dense = Dense(in_features, features, bias=False, dtype=dtype)
+        self.bn = BatchNorm(features, dtype=dtype)
         self.act = act
 
     def forward(self, x: torch.Tensor, *, stage: str | None = None) -> torch.Tensor:
@@ -114,12 +157,13 @@ class MLPBlock(nn.Module):
 
 
 class SharedMLP(nn.Sequential):
-    """Stack of MLPBlocks over the trailing feature axis, named layer0, ..."""
+    """Stack of MLPBlocks over the trailing feature axis, named layer0, ...,
+    in ``dtype``."""
 
-    def __init__(self, in_features: int, layers: Sequence[int]):
+    def __init__(self, in_features: int, layers: Sequence[int], *, dtype=torch.float32):
         super().__init__()
         for i, width in enumerate(layers):
-            self.add_module(f"layer{i}", MLPBlock(in_features, width))
+            self.add_module(f"layer{i}", MLPBlock(in_features, width, dtype=dtype))
             in_features = width
 
     def fold(self) -> tuple[tuple[torch.Tensor, torch.Tensor], ...]:

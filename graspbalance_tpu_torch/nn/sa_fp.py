@@ -25,7 +25,9 @@ class SetAbstraction(nn.Module):
     ``nsample >= fused_min_nsample`` (``nn.layers.fused_eval_ok``): the
     BN-folded MLP and the max over K run in one kernel (ops/mlpmax.py), the
     xyz | features concatenation is never built, and the 1 / radius of the
-    normalised offsets is folded into the xyz rows of layer 0."""
+    normalised offsets is folded into the xyz rows of layer 0. The branch
+    is float32 only: in bfloat16 (``dtype``) the offsets are cast to the
+    features' dtype where they join them, and the MLP runs in ``dtype``."""
 
     def __init__(
         self,
@@ -35,12 +37,14 @@ class SetAbstraction(nn.Module):
         mlp: Sequence[int],
         *,
         fused_min_nsample: int | None = None,
+        dtype=torch.float32,
     ):
         super().__init__()
         self.radius = radius
         self.nsample = nsample
         self.fused_min_nsample = fused_min_nsample
-        self.mlp = SharedMLP(3 + in_features, mlp)
+        self.dtype = dtype
+        self.mlp = SharedMLP(3 + in_features, mlp, dtype=dtype)
 
     def forward(self, xyz: torch.Tensor, features: torch.Tensor | None, inds: torch.Tensor, *, plain: bool = False):
         """xyz (B, N, 3); features (B, N, C) or None; inds (B, npoint).
@@ -60,16 +64,21 @@ class SetAbstraction(nn.Module):
             return new_xyz, fused(parts, ((w0_parts, b0), *rest))
         grouped = (ops.group_points(xyz, idx) - new_xyz.unsqueeze(2)) / self.radius
         if features is not None:
-            grouped = torch.cat([grouped, ops.group_points(features, idx)], dim=-1)
-        return new_xyz, self.mlp(grouped).amax(dim=2)
+            grouped_feats = ops.group_points(features, idx)
+            grouped = torch.cat([grouped.to(grouped_feats.dtype), grouped_feats], dim=-1)
+        return new_xyz, self.mlp(grouped.to(self.dtype)).amax(dim=2)
 
 
 class FeaturePropagation(nn.Module):
-    """Inverse-distance 3-NN upsampling + skip concat + shared MLP."""
+    """Inverse-distance 3-NN upsampling + skip concat + shared MLP in
+    ``dtype``. The interpolation runs in float32 (the float32 weights
+    promote bfloat16 features, as jnp does); the MLP's input is cast to
+    ``dtype``."""
 
-    def __init__(self, in_features: int, mlp: Sequence[int]):
+    def __init__(self, in_features: int, mlp: Sequence[int], *, dtype=torch.float32):
         super().__init__()
-        self.mlp = SharedMLP(in_features, mlp)
+        self.dtype = dtype
+        self.mlp = SharedMLP(in_features, mlp, dtype=dtype)
 
     def forward(self, unknown, known, unknown_feats, known_feats):
         """unknown (B, n, 3), known (B, m, 3), unknown_feats (B, n, C1) or
@@ -77,5 +86,5 @@ class FeaturePropagation(nn.Module):
         dist, idx = ops.three_nn(unknown, known)
         interp = three_interpolate(known_feats, idx, inverse_distance_weights(dist))
         if unknown_feats is not None:
-            interp = torch.cat([interp, unknown_feats], dim=-1)
-        return self.mlp(interp)
+            interp = torch.cat([interp, unknown_feats.to(interp.dtype)], dim=-1)
+        return self.mlp(interp.to(self.dtype))

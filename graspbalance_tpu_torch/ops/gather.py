@@ -5,7 +5,10 @@ ops of this package never emit anything else (no -1 sentinels).
 
 The gradient with respect to ``points`` is ``ops/scatter.scatter_add``:
 on a CUDA tensor its kernel (``csrc/scatter.cu``, deterministic), on a CPU
-tensor its plain version. Indices get no gradient.
+tensor its plain version. Both sum in float32: a bfloat16 cotangent is cast
+to float32 and the sums back to the points' dtype, as the JAX package's
+kernel path does (graspbalance_tpu/ops/gather.py:_flat_take_pallas_bwd).
+Indices get no gradient.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ class _Take(torch.autograd.Function):
     def forward(ctx, points, idx):
         ctx.save_for_backward(idx)
         ctx.n = points.shape[1]
+        ctx.dtype = points.dtype
         return _flat_take(points, idx)
 
     @staticmethod
@@ -42,9 +46,9 @@ class _Take(torch.autograd.Function):
             return None, None
         (idx,) = ctx.saved_tensors
         b, c = idx.shape[0], grad.shape[-1]
-        ct = grad.reshape(b, -1, c).contiguous()
+        ct = grad.reshape(b, -1, c).float().contiguous()
         rows = idx.reshape(b, -1).to(torch.int32).contiguous()
-        return scatter_add(ct, rows, ctx.n), None
+        return scatter_add(ct, rows, ctx.n).to(ctx.dtype), None
 
 
 def gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

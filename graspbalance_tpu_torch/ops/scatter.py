@@ -41,15 +41,18 @@ def _scratch_bytes(b: int, r: int, n: int, c: int) -> int:
 
 
 def scatter_add_plain(ct: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
-    """Plain PyTorch version, in ``ct``'s dtype: one ``index_add_`` into a
-    flat (B*n + 1, C) zero tensor whose last row takes the dropped rows."""
+    """Plain PyTorch version: one ``index_add_`` into a flat (B*n + 1, C)
+    zero tensor whose last row takes the dropped rows. It sums in float32,
+    as the kernel does, or in float64 for a float64 ``ct``; the result is
+    in that dtype."""
     _check(ct, idx, n)
     b, _, c = ct.shape
+    acc = torch.promote_types(ct.dtype, torch.float32)
     idx = idx.to(torch.int64)
     offs = torch.arange(b, device=idx.device, dtype=torch.int64).unsqueeze(1) * n
     rows = torch.where((idx >= 0) & (idx < n), idx + offs, b * n)
-    out = torch.zeros((b * n + 1, c), dtype=ct.dtype, device=ct.device)
-    out.index_add_(0, rows.reshape(-1), ct.reshape(-1, c))
+    out = torch.zeros((b * n + 1, c), dtype=acc, device=ct.device)
+    out.index_add_(0, rows.reshape(-1), ct.reshape(-1, c).to(acc))
     return out[: b * n].reshape(b, n, c)
 
 

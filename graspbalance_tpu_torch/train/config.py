@@ -29,7 +29,7 @@ class ModelConfig:
     backbone_stages: tuple | None = None  # None = the full DRP stage table
     num_seed: int = 1024
     query_order: str = "index"  # 'index' ('nearest' is refused, item 7)
-    dtype: str = "float32"  # compute dtype ('bfloat16' is refused, item 4)
+    dtype: str = "float32"  # compute dtype: 'float32' | 'bfloat16' (parameters stay float32)
     # the width head's compute dtype (None = follow `dtype`)
     width_mlp_dtype: str | None = None
     # label pipeline: 'full' only ('reduced' is refused: on the card its

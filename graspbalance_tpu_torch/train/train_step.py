@@ -10,8 +10,15 @@ backward is the scatter-add kernel, ``csrc/scatter.cu``), the Adam update at
 the OneCycle learning rate, and, inside the forward, the BatchNorm
 running-statistics update. An eval step is the reference's loss-only eval:
 running BatchNorm statistics, the training label matching, ``get_loss``'s
-metrics, without gradients. Everything stays float32: TF32 is off for the
-matrix products.
+metrics, without gradients.
+
+Compute dtype (``cfg.model.dtype``, ``width_mlp_dtype``): float32, or
+bfloat16 as the JAX package's production training runs (every module's
+products and normalisations in bfloat16; parameters, BatchNorm statistics,
+the heads' outputs, label matching, the loss and Adam in float32). TF32 is
+off for float32 matrix products, and cuBLAS keeps float32 accumulation for
+bfloat16 ones (``allow_bf16_reduced_precision_reduction=False``), as the
+TPU accumulates; neither setting touches the other dtype's products.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ from graspbalance_tpu_torch.labels.losses import get_loss
 from graspbalance_tpu_torch.models.drp import DRP_STAGES
 from graspbalance_tpu_torch.models.graspbalance import GraspBalance
 from graspbalance_tpu_torch.models.heads import CYLINDER_RADIUS, HMAX_LIST, HMIN, NUM_ANGLE
-from graspbalance_tpu_torch.nn.layers import BatchNorm, bn_momentum_schedule, init_flax_defaults_
+from graspbalance_tpu_torch.nn.layers import DTYPES, BatchNorm, bn_momentum_schedule, compute_dtype, init_flax_defaults_
 from graspbalance_tpu_torch.train.config import Config
 
 
@@ -40,10 +47,6 @@ def check_supported(cfg: Config) -> None:
     refused = [(f"backbone={m.backbone!r}", 7)] if m.backbone != "drp" else []
     if m.query_order != "index":
         refused.append((f"query_order={m.query_order!r}", 7))
-    if m.dtype != "float32":
-        refused.append((f"dtype={m.dtype!r}", 4))
-    if m.width_mlp_dtype not in (None, "float32"):
-        refused.append((f"width_mlp_dtype={m.width_mlp_dtype!r}", 4))
     for name, value in heads.items():
         got = getattr(m, name)
         if (tuple(got) if name == "hmax_list" else got) != value:
@@ -53,6 +56,10 @@ def check_supported(cfg: Config) -> None:
     if refused:
         raise ValueError("the port cannot honour " + "; ".join(
             f"{what}: ROADMAP Queue 1 item {item}" for what, item in refused))
+    for name in ("dtype", "width_mlp_dtype"):
+        value = getattr(m, name)
+        if value not in DTYPES and not (name == "width_mlp_dtype" and value is None):
+            raise ValueError(f"{name}={value!r}: a compute dtype is one of {sorted(DTYPES)}")
     if m.label_impl != "full":
         raise ValueError(
             f"label_impl={m.label_impl!r}: the port has the 'full' label pipeline only; 'reduced' is not "
@@ -70,7 +77,8 @@ def build_model(cfg: Config = Config(), *, device="cuda") -> GraspBalance:
     check_supported(cfg)
     m = cfg.model
     model = GraspBalance(
-        num_view=m.num_view, backbone_stages=m.backbone_stages or DRP_STAGES, num_seed=m.num_seed
+        num_view=m.num_view, backbone_stages=m.backbone_stages or DRP_STAGES, num_seed=m.num_seed,
+        dtype=compute_dtype(m.dtype), width_mlp_dtype=compute_dtype(m.width_mlp_dtype),
     )
     return model.to(resolve_device(device))
 
@@ -144,6 +152,13 @@ def create_train_state(cfg: Config, steps_per_epoch: int, sample_batch: dict, *,
     return TrainState(model, *make_optimizer(model, cfg, steps_per_epoch))
 
 
+def set_matmul_precision() -> None:
+    """cuBLAS as the step needs it: float32 products without TF32, bfloat16
+    products accumulated in float32 (no bfloat16 split-K reduction)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
 def set_bn_momentum(model: torch.nn.Module, momentum: float) -> None:
     for mod in model.modules():
         if isinstance(mod, BatchNorm):
@@ -190,7 +205,7 @@ def train_step(
     sync); the parameters' .grad keep this step's gradients. ``plain`` runs
     the plain PyTorch versions of FPS and the cylinder query (to compare
     against them on the card; see ``GraspBalance.forward_train``)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
+    set_matmul_precision()
     batch = _maybe_expand_analytic(to_device(batch, next(model.parameters()).device), cfg)
     optimizer.zero_grad(set_to_none=True)
     loss, metrics = forward_loss(model, batch, epoch, cfg, plain=plain)
@@ -207,7 +222,7 @@ def eval_step(model: GraspBalance, batch: dict, cfg: Config = Config(), *, plain
     backward, hence no gradients here), label matching as in training, and
     ``get_loss``'s metrics as 0-dim tensors on the device. ``batch`` as for
     ``train_step``; ``plain`` runs the kernels' plain versions."""
-    torch.backends.cuda.matmul.allow_tf32 = False
+    set_matmul_precision()
     batch = _maybe_expand_analytic(to_device(batch, next(model.parameters()).device), cfg)
     model.eval()
     ep = model.forward_train(batch, plain=plain)

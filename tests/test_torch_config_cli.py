@@ -11,7 +11,8 @@ Tolerances:
     in float64), at and past its last step;
   - the CLI: the same argv gives the same config on the shared fields and
     the same first batch, exactly, as the JAX CLI; the flags the port
-    cannot honour yet raise, naming their ROADMAP item.
+    cannot honour yet raise, naming their ROADMAP item; the bfloat16
+    compute dtypes are accepted, built, and recorded in config.json.
 """
 
 import dataclasses
@@ -99,14 +100,30 @@ def test_port_config_json_loads_in_jax(tmp_path):
 
 
 @pytest.mark.parametrize("field, value, item", [
-    ("backbone", "pointnet2", 7), ("query_order", "nearest", 7), ("dtype", "bfloat16", 4),
-    ("width_mlp_dtype", "bfloat16", 4), ("num_angle", 6, 7), ("num_depth", 3, 7),
+    ("backbone", "pointnet2", 7), ("query_order", "nearest", 7), ("num_angle", 6, 7), ("num_depth", 3, 7),
     ("cylinder_radius", 0.05, 7), ("hmin", -0.01, 7), ("hmax_list", (0.01, 0.02), 7),
 ])
 def test_build_model_refuses_what_it_cannot_honour(field, value, item):
     cfg = dataclasses.replace(CFG, model=dataclasses.replace(CFG.model, **{field: value}))
     with pytest.raises(ValueError, match=rf"{field}=.*item {item}"):
         build_model(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("field", ["dtype", "width_mlp_dtype"])
+def test_build_model_accepts_bfloat16(field):
+    """A bfloat16 compute dtype builds a model that computes in it (the
+    whole model, or the width head's MLPs alone) and keeps its parameters
+    and statistics in float32; any other dtype name is refused."""
+    cfg = dataclasses.replace(CFG, model=dataclasses.replace(CFG.model, **{field: "bfloat16"}))
+    model = build_model(cfg, device="cpu")
+    assert {t.dtype for t in model.state_dict().values()} == {torch.float32}
+    whole = field == "dtype"
+    assert model.width_grouping.mlp_scale0.layer0.dense.dtype == torch.bfloat16
+    assert model.backbone.sa1.mlp.layer0.bn.dtype == model.fuse_multi_scale.dtype == (
+        torch.bfloat16 if whole else torch.float32)
+    with pytest.raises(ValueError, match=rf"{field}='float16'"):
+        build_model(dataclasses.replace(CFG, model=dataclasses.replace(CFG.model, **{field: "float16"})),
+                    device="cpu")
 
 
 def test_build_model_refuses_reduced_labels():
@@ -118,9 +135,9 @@ def test_build_model_refuses_reduced_labels():
 def test_train_refuses_before_writing(tmp_path):
     """A config the port cannot honour is refused before the loop writes
     its config.json or anything else into the log_dir."""
-    cfg = dataclasses.replace(CFG, model=dataclasses.replace(CFG.model, dtype="bfloat16"),
+    cfg = dataclasses.replace(CFG, model=dataclasses.replace(CFG.model, backbone="pointnet2"),
                               train=TrainConfig(log_dir=str(tmp_path / "run")))
-    with pytest.raises(ValueError, match="dtype='bfloat16'.*item 4"):
+    with pytest.raises(ValueError, match="backbone='pointnet2'.*item 7"):
         loop.train(cfg, lambda epoch: iter([{}]), steps_per_epoch=1, device="cpu")
     assert not (tmp_path / "run").exists()
 
@@ -183,10 +200,33 @@ def test_cli_maps_argv_as_jax(argv, monkeypatch):
 
 @pytest.mark.parametrize("argv, match", [
     (["--dataset_root", "/data/graspnet"], "item 6"),
-    (["--dtype", "bfloat16"], "item 4"),
-    (["--width_mlp_dtype", "bfloat16"], "item 4"),
     (["--backbone", "pointnet2"], "item 7"),
 ])
 def test_cli_refuses(argv, match):
     with pytest.raises(ValueError, match=match):
         cli.main(argv + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("flag", ["--dtype", "--width_mlp_dtype"])
+def test_cli_accepts_bfloat16(flag, tmp_path, monkeypatch):
+    """The CLI maps a bfloat16 flag as the JAX CLI does, the loop's config
+    check passes it, and the config.json the loop writes records it (and
+    loads in the JAX package)."""
+    argv = [flag, "bfloat16", "--num_view", "24", "--log_dir", str(tmp_path)]
+    captured = {}
+    monkeypatch.setattr(sys, "argv", ["train"] + argv)
+    monkeypatch.setattr(j_loop, "train", lambda cfg, *a, **k: captured.update(jax=cfg))
+    j_cli.main()
+
+    def config_only(cfg, *a, **k):  # the loop's steps before its first batch
+        loop.check_supported(cfg)
+        CheckpointManager(f"{cfg.train.log_dir}/checkpoints").save_config(cfg)
+        captured["port"] = cfg
+
+    monkeypatch.setattr(loop, "train", config_only)
+    cli.main(argv + ["--device", "cpu"])
+    _shared(config_to_dict(captured["port"]), j_config_to_dict(captured["jax"]))
+    field = flag[2:]
+    stored = load_config(str(tmp_path / "checkpoints"))
+    assert getattr(stored.model, field) == getattr(captured["port"].model, field) == "bfloat16"
+    assert getattr(j_load_config(str(tmp_path / "checkpoints")).model, field) == "bfloat16"

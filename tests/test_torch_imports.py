@@ -48,6 +48,7 @@ def test_port_imports_no_jax():
     assert "graspbalance_tpu_torch.labels.losses" in names and "graspbalance_tpu_torch.labels.label_gen" in names
     assert {"graspbalance_tpu_torch.ops.mlpmax", "graspbalance_tpu_torch.ops.select",
             "graspbalance_tpu_torch.ops.table_gather"} <= set(names)
+    assert {"graspbalance_tpu_torch.eval.quality", "graspbalance_tpu_torch.cli.quality_gate"} <= set(names)
     code = (
         "import importlib, json, sys\n"
         f"for name in {names!r}:\n"
