@@ -12,8 +12,10 @@ training step (label matching, multi-task loss, backward, Adam + OneCycle,
 BatchNorm statistics); at bs=4 the fused eval configuration (every
 set abstraction and local aggregation fused, the width head on the query's
 gripper-frame coordinates) through forward + decode and both pipelines; the
-table-gather probe; and the training loop through its CLI, with a resume, an
-eval pass and both label pipelines. Phases, each fatal on failure:
+table-gather probe; the training loop through its CLI, with a resume, an
+eval pass and both label pipelines; the closed-loop quality gate; the DSN's
+training at bs=4 and its gate; and the inference CLI over a synthetic batch
+and a GraspNet-1B-shaped dump. Phases, each fatal on failure:
 
   1. print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from csrc/*.cu (one nvcc per source, all in
@@ -137,7 +139,24 @@ eval pass and both label pipelines. Phases, each fatal on failure:
      a torch.profiler pass over two steps of each, as phase 9's); and
      run_gate for GATE_STEPS steps in bfloat16 at BATCH (fps, multicyl,
      scatter, widthmlp and collision launched; untrained against trained
-     metrics, every one finite; no quality threshold at that length).
+     metrics, every one finite; no quality threshold at that length);
+ 17. DSN training at full width (train/seg_step.py: the default stage
+     table, bs=BATCH, the DSN gate's 20,000-point scenes): one step through
+     the kernels against one through the plain versions from the same state
+     (fps, knn and scatter launched; the losses within LOSS_RTOL, every
+     gradient's cosine >= DSN_GRAD_COS but those that are 0 in exact
+     arithmetic, printed apart), the scatter-add at each gather shape of the
+     step, captured from it, as in phase 9; DSN_TRAIN_STEPS timed steps (ms
+     per step, a forward + loss / backward / optimizer split from CUDA
+     events, the peak device memory, a torch.profiler pass as phase 9's);
+     then run_dsn_gate (cli/dsn_quality_gate.py) for DSN_GATE_STEPS steps,
+     its metrics finite and the oracle's fg_iou 1;
+ 18. the data path on the card: cli/infer's synthetic smoke at BATCH from a
+     checkpoint of random weights, which the CLI restores (fps, multicyl,
+     widthmlp and collision launched; some grasps kept), then cli/infer
+     over a DUMP_FRAMES-frame GraspNet-1B-shaped tree written to a
+     temporary directory (eval/pipeline.dump_dataset): one (G, 17) float32
+     file a frame in graspnetAPI's layout, rotations orthonormal.
 
 Prints the kernel table as one JSON line, a row per TPU kernel (K2 and K3 are
 covered by K1's kernel): its launches on the path named in its "path" (the
@@ -151,7 +170,8 @@ where one PyTorch call computes the same function, that call's time; the
 rows of the kernels redesigned last (the masked FPS and the class-plane
 selection) are marked "redesigned", with their device ms (their earlier
 times are printed in phases 6 and 10); each row's "gate_launches" counts
-its launches in phase 16's short gate; and as the last
+its launches in phase 16's short gate, each row's "dsn_train_launches"
+in one DSN training step of phase 17; and as the last
 line {"ok": true, "device": {...}}. Without CUDA it exits non-zero before
 any result. Imports nothing of JAX.
 """
@@ -219,6 +239,18 @@ GATE_STEPS = 40
 # ORACLE_TOL in quality and AP
 JAX_ORACLE = {"quality_mean": 0.9955357185431889, "ap_analytic": 0.8593523134654616, "kept_per_scene": 28.0}
 ORACLE_TOL = 0.005
+# phase 17, DSN training at full width: bs=BATCH on the DSN gate's scenes,
+# DSN_TRAIN_STEPS timed steps, a DSN gate of DSN_GATE_STEPS steps
+DSN_MAX_OBJECTS = 12
+DSN_TRAIN_STEPS = 6
+DSN_GATE_STEPS = 40
+# DSN step through the kernels against the plain versions: the forward is
+# the same (FPS and kNN exact), the gathers' backward sums in another order
+DSN_GRAD_COS = 0.9999
+# phase 18: frames of the fixture tree dumped through cli/infer, and the
+# seeds a scene of the CLI's model (the default config's)
+DUMP_FRAMES = 4
+DEFAULT_NUM_SEED = 1024
 # bfloat16 step through the kernels against the plain versions: the forward
 # is the same (FPS and the query are exact), the gathers' backward sums in
 # another order in float32 and rounds to bfloat16
@@ -240,6 +272,7 @@ PATH_KERNELS = {
     "oracle": ("collision",),
     "train_bf16": ("fps", "multicyl", "scatter"),
     "gate": ("fps", "multicyl", "scatter", "widthmlp", "collision"),
+    "dsn_train": ("fps", "knn", "scatter"),
 }
 # one row per TPU kernel: (its number, the name of the row, the kernel
 # measured for it, the source, the TPU kernel's def, the path whose launches
@@ -1315,6 +1348,217 @@ def gate_phase(dev, smi: str) -> dict:
     return out
 
 
+def dsn_zero_gradient(stages) -> set:
+    """The DSN's parameters whose gradient is 0 in exact arithmetic: every
+    attention's last bias (the softmax over the neighbours ignores a
+    constant), and the biases that shift a stage's output features by a
+    per-channel constant, which the train-mode BatchNorm after the next
+    dense layer removes (each stage's last block, the projection)."""
+    names = {f"backbone.block{i}_{j}.attn.attn2.bias" for i, st in enumerate(stages) for j in range(st[4])}
+    names |= {f"backbone.block{i}_{st[4] - 1}.mlp2.bias" for i, st in enumerate(stages) if st[4] > 0}
+    return names | {"backbone.proj.bias"}
+
+
+def dsn_train_phase(dev, smi: str) -> dict:
+    """Phase 17 (see the module docstring). Returns the launch counts of one
+    DSN training step."""
+    import numpy as np
+    import torch
+
+    from graspbalance_tpu_torch import _build
+    from graspbalance_tpu_torch.cli.dsn_quality_gate import run_dsn_gate
+    from graspbalance_tpu_torch.data.synthetic import SceneConfig, make_batch
+    from graspbalance_tpu_torch.models.dsn import DSN
+    from graspbalance_tpu_torch.models.point_transformer import PT_STAGES
+    from graspbalance_tpu_torch.ops.scatter import scatter_add_plain
+    from graspbalance_tpu_torch.train.seg_step import init_dsn, make_seg_optimizer, seg_forward_loss, seg_train_step
+
+    # the DSN gate's scenes (cli/dsn_quality_gate.py) at full width
+    scene = SceneConfig(num_points=NUM_POINTS, table_extent=0.15, object_scatter=0.12, num_objects=8,
+                        max_objects=DSN_MAX_OBJECTS, analytic_labels=True, emit_label_tensors=False)
+    b = make_batch(1, BATCH, scene)
+    cloud = torch.from_numpy(b["point_clouds"][..., :3]).to(dev)
+    inst = torch.from_numpy(b["instance_label"].astype(np.int32)).to(dev)
+    model = init_dsn(DSN().to(dev), 0)
+    model_p = copy.deepcopy(model)
+    opt, sched = make_seg_optimizer(model, DSN_TRAIN_STEPS + 2)
+    opt_p, sched_p = make_seg_optimizer(model_p, DSN_TRAIN_STEPS + 2)
+
+    # one step through the kernels (its scatter calls captured), one through
+    # the plain versions, from the same state
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    out = {}
+    calls = capture_scatters(lambda: out.update(seg_train_step(model, opt, sched, cloud, inst, DSN_MAX_OBJECTS)))
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    require(all(launches[k] > 0 for k in PATH_KERNELS["dsn_train"]),
+            f"DSN training step: launches {launches}; needs fps, knn, scatter > 0")
+    metrics_k = {k: float(v) for k, v in out.items()}
+    with gather_backward(scatter_add_plain):
+        metrics_p = {k: float(v) for k, v in
+                     seg_train_step(model_p, opt_p, sched_p, cloud, inst, DSN_MAX_OBJECTS, plain=True).items()}
+    require(all_finite(metrics_k.values()) and all_finite(metrics_p.values()),
+            f"DSN step: non-finite metrics {metrics_k} {metrics_p}")
+    loss_k, loss_p = metrics_k["loss/seg_loss"], metrics_p["loss/seg_loss"]
+    require(abs(loss_k - loss_p) <= LOSS_RTOL * abs(loss_p), f"DSN loss: kernel {loss_k} vs plain {loss_p}")
+    cosines = {}
+    for (name, p), (_, q) in zip(model.named_parameters(), model_p.named_parameters()):
+        a, c = p.grad.double().flatten(), q.grad.double().flatten()
+        cosines[name] = float(a @ c / (a.norm() * c.norm()).clamp_min(1e-30))
+    # gradients that are 0 in exact arithmetic: rounding noise on both
+    # sides, printed apart
+    noise = {k: cosines.pop(k) for k in dsn_zero_gradient(PT_STAGES)}
+    worst = min(cosines, key=cosines.get)
+    require(cosines[worst] >= DSN_GRAD_COS, f"DSN gradient of {worst}: cosine {cosines[worst]:.6f} < {DSN_GRAD_COS}")
+    print(f"DSN train step bs={BATCH}, {NUM_POINTS} pts, kernel vs plain: launches {launches}; loss {loss_k!r} vs "
+          f"{loss_p!r}; gradient cosines: smallest {cosines[worst]:.7f} ({worst}), median "
+          f"{statistics.median(cosines.values()):.7f} over {len(cosines)} tensors (the {len(noise)} zero-gradient "
+          f"biases, noise: {min(noise.values()):.3f}-{max(noise.values()):.3f}); metrics {json.dumps(metrics_k)}")
+    del model_p, opt_p, sched_p
+    n_calls = len(calls)
+    print("DSN step's gathers:")
+    (k11_ms, k11_plain_ms, k11_lib_ms), _, _ = scatter_phase(calls)
+    del calls
+
+    # timed steps through the kernels: ms per step, the split, peak memory
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    iters, losses = [], []
+    for _ in range(DSN_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        m = seg_train_step(model, opt, sched, cloud, inst, DSN_MAX_OBJECTS)
+        torch.cuda.synchronize()
+        iters.append(time.perf_counter() - t1)
+        losses.append(float(m["loss/seg_loss"]))
+    require(all_finite(losses), f"DSN losses {losses}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    opt.zero_grad(set_to_none=True)
+    ev[0].record()
+    loss, _ = seg_forward_loss(model, cloud, inst, DSN_MAX_OBJECTS)
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    opt.step()
+    sched.step()
+    ev[3].record()
+    torch.cuda.synchronize()
+    split = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    ms = sorted(t * 1e3 for t in iters)
+    print(f"DSN train step bs={BATCH}, {NUM_POINTS} pts, through the kernels: losses {losses}; median "
+          f"{statistics.median(ms):.3f} ms/step (min {ms[0]:.3f}, max {ms[-1]:.3f} over {len(ms)} steps), "
+          f"{BATCH * len(ms) / (sum(ms) / 1e3):.3f} clouds/s; split (CUDA events, one more step) forward+loss "
+          f"{split[0]:.3f} ms, backward {split[1]:.3f} ms, optimizer {split[2]:.3f} ms; peak device memory "
+          f"{peak_gb:.3f} GB ({smi}); K11 over the step's {n_calls} calls: kernel {k11_ms:.4f} ms, plain "
+          f"{k11_plain_ms:.4f}, index_add_ {k11_lib_ms:.4f}")
+    profile_calls({"dsn_train": lambda: seg_train_step(model, opt, sched, cloud, inst, DSN_MAX_OBJECTS)}, calls=2)
+    del model, opt, sched
+
+    # a short DSN gate at full width
+    lines = []
+    t0 = time.perf_counter()
+    record = run_dsn_gate(steps=DSN_GATE_STEPS, bs=BATCH, num_points=NUM_POINTS, eval_batches=GATE_EVAL_BATCHES,
+                          log=lines.append, device=dev)
+    torch.cuda.synchronize()
+    for key in ("untrained", "trained", "oracle", "trained_xdist", "oracle_xdist"):
+        require(all_finite(record[key].values()), f"DSN gate {key}: {record[key]}")
+    require(record["oracle"]["fg_iou"] == 1.0, f"DSN gate oracle: {record['oracle']}")
+    print(f"DSN gate, {DSN_GATE_STEPS} steps at bs={BATCH} ({time.perf_counter() - t0:.1f} s, {smi}): "
+          + json.dumps(record))
+    return launches
+
+
+def write_fixture_tree(root: str, frames: int) -> None:
+    """A GraspNet-1B-shaped tree of one test_seen scene (scene_0100) holding
+    ``frames`` frames: clean-scene clouds and segmentations (the loader's
+    first choice, 20,000-point synthetic scenes), and a placeholder file a
+    frame in depth/, which the loader counts and the clean path never
+    opens."""
+    import os
+
+    import numpy as np
+
+    from graspbalance_tpu_torch.data.synthetic import SceneConfig, make_scenes
+
+    clouds, labels = make_scenes(SEED + 7, frames, SceneConfig(num_points=NUM_POINTS))
+    base = os.path.join(root, "scenes", "scene_0100", "realsense", "depth")
+    clean = os.path.join(root, "clean_scenes", "scene_0100", "realsense")
+    for d in (base, f"{clean}/points", f"{clean}/seg"):
+        os.makedirs(d, exist_ok=True)
+    for f in range(frames):
+        open(os.path.join(base, f"{f:04d}.png"), "wb").close()
+        np.save(f"{clean}/points/{f:04d}.npy", clouds[f])
+        np.save(f"{clean}/seg/{f:04d}.npy", labels[f])
+
+
+def data_phase(dev, smi: str) -> dict:
+    """Phase 18 (see the module docstring). Returns the launch counts of the
+    synthetic smoke."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from graspbalance_tpu_torch import _build
+    from graspbalance_tpu_torch.cli import infer
+    from graspbalance_tpu_torch.train.checkpoints import CheckpointManager
+    from graspbalance_tpu_torch.train.config import Config
+    from graspbalance_tpu_torch.train.train_step import TrainState, build_model, make_optimizer
+    from graspbalance_tpu_torch.weights import init_random_
+
+    root = tempfile.mkdtemp(prefix="gb_data_")
+    try:
+        # a checkpoint of the smoke's random weights (flax's initialisation
+        # keeps no seed valid), restored by the CLI as a training run's
+        cfg = Config()
+        model = init_random_(build_model(cfg, device=dev), SEED)
+        ckpt = CheckpointManager(f"{root}/checkpoints")
+        ckpt.save_config(cfg)
+        ckpt.save(0, TrainState(model, *make_optimizer(model, cfg, 1)))
+        del model
+        argv = ["--batch_size", str(BATCH), "--num_point", str(NUM_POINTS), "--device", str(dev),
+                "--checkpoint_dir", f"{root}/checkpoints"]
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        grasps, keep = infer.main(argv)
+        torch.cuda.synchronize()
+        launches = dict(_build.launches)
+        require(all(launches[k] > 0 for k in PATH_KERNELS["no_obs"]), f"infer smoke: launches {launches}")
+        m = DEFAULT_NUM_SEED
+        require(grasps.shape == (BATCH, m, 17) and keep.shape == (BATCH, m) and bool(np.isfinite(grasps).all()),
+                f"infer smoke: shapes {grasps.shape} {keep.shape} or non-finite grasps")
+        require(keep.any(), "infer smoke: no grasp kept")
+        print(f"cli/infer synthetic smoke bs={BATCH}: {time.perf_counter() - t0:.1f} s with the model's build and "
+              f"restore; {int(keep.sum())} of {keep.size} grasps kept; launches {launches}")
+
+        write_fixture_tree(f"{root}/graspnet", DUMP_FRAMES)
+        t0 = time.perf_counter()
+        n = infer.main(argv + ["--dataset_root", f"{root}/graspnet", "--dump_dir", f"{root}/dump"])
+        torch.cuda.synchronize()
+        dump_s = time.perf_counter() - t0
+        out_dir = f"{root}/dump/scene_0100/realsense"
+        files = sorted(os.listdir(out_dir))
+        require(n == DUMP_FRAMES and files == [f"{f:04d}.npy" for f in range(DUMP_FRAMES)],
+                f"dump: {n} frames, files {files}")
+        rows = [np.load(f"{out_dir}/{f}") for f in files]
+        require(all(r.dtype == np.float32 and r.ndim == 2 and r.shape[1] == 17 and r.shape[0] <= m
+                    and np.isfinite(r).all() for r in rows), f"dump rows: {[(r.dtype, r.shape) for r in rows]}")
+        rot = np.concatenate([r[:, 4:13] for r in rows]).reshape(-1, 3, 3)
+        require(len(rot) > 0 and np.abs(rot @ rot.transpose(0, 2, 1) - np.eye(3)).max() < 1e-4,
+                f"dump: {len(rot)} rows, or their rotations not orthonormal")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"dump_dataset through cli/infer over a {DUMP_FRAMES}-frame fixture tree ({dump_s:.1f} s): "
+          f"dump/scene_0100/realsense/{files[0]}..{files[-1]}, rows a frame {[len(r) for r in rows]} x 17 float32 "
+          f"({smi})")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1723,6 +1967,10 @@ def main() -> int:
     # 16. the closed-loop quality gate: the oracle, the bfloat16 step, a short gate
     path_launches.update(gate_phase(dev, smi))
 
+    # 17. DSN training at full width; 18. the data path and cli/infer on the card
+    path_launches["dsn_train"] = dsn_train_phase(dev, smi)
+    path_launches["infer"] = data_phase(dev, smi)
+
     table = [
         {
             "name": name,
@@ -1742,6 +1990,7 @@ def main() -> int:
             **({"latency_floor_ms": fps_floor_ms} if measured == "fps" else {}),
             **({"redesigned": True, "device_ms": device_ms[measured]} if measured in REDESIGNED else {}),
             "gate_launches": path_launches["gate"][measured],
+            "dsn_train_launches": path_launches["dsn_train"][measured],
         }
         for k_num, name, measured, source, replaces, path in KERNEL_TABLE
     ]

@@ -1,5 +1,5 @@
 """graspbalance_tpu_torch: the GraspBalance eval forward, decode, serving
-pipeline and training in PyTorch, with hand-written CUDA kernels for an
+pipeline and training, and the DSN's training, in PyTorch, with hand-written CUDA kernels for an
 NVIDIA H100 (sm_90a).
 
 A port of ``graspbalance_tpu`` (JAX), which stays the reference: each module
@@ -18,13 +18,17 @@ Layout:
   models/   DRP backbone, grasp heads, GraspBalance eval forward (with OBS
             re-seeding), pred_decode, the point-transformer DSN
   eval/     grasp NMS, voxel downsample + collision filter, mean shift, OBS,
-            and the end-to-end GraspInference pipeline
+            the end-to-end GraspInference pipeline and its dataset dump,
+            closed-loop quality of both models
   labels/   grasp view geometry, label matching,
-            the loss, the analytic synthetic labels
-  data/     synthetic scenes with their label tensors
+            the loss, the analytic synthetic labels, the DSN's seg losses
+  data/     synthetic scenes with their label tensors; the GraspNet-1B
+            dataset, host utilities, the native library's bindings, the
+            offline label generators
   train/    the config tree, the training and eval steps, the epoch loop,
-            checkpoints and metric streams
-  cli/      the training command line (python -m graspbalance_tpu_torch.cli.train)
+            checkpoints and metric streams; the DSN's training step
+  cli/      command lines (python -m graspbalance_tpu_torch.cli.<name>):
+            train, train_seg, quality_gate, dsn_quality_gate, infer, eval_ap
 """
 
 __version__ = "0.1.0"

@@ -1,2 +1,3 @@
 """Command-line entry points of the port (``python -m
-graspbalance_tpu_torch.cli.train``)."""
+graspbalance_tpu_torch.cli.<name>``: train, train_seg, quality_gate,
+dsn_quality_gate, infer, eval_ap)."""

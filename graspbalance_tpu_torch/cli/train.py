@@ -3,16 +3,17 @@
 
     python -m graspbalance_tpu_torch.cli.train --synthetic_steps 20 --max_epoch 1
 
-Trains on synthetic scenes (data/synthetic.py): by default with the static
-labels (one base label tensor shared by every scene), with
-``--synthetic_varied_labels`` a roll of it per scene, with
-``--synthetic_analytic`` the analytic labels, expanded on the device. Runs on
-the card unless ``--device cpu``. ``--dtype bfloat16`` trains in bfloat16
-compute (``--width_mlp_dtype bfloat16`` only the width head's MLPs); both
-are recorded in config.json. Refused until the port has them:
-``--dataset_root`` (GraspNet-1B, ROADMAP Queue 1 item 6) here, and what the
-config check refuses (``train_step.check_supported``): ``--backbone
-pointnet2`` (item 7).
+Trains on GraspNet-1B with ``--dataset_root`` (data/dataset.py: the
+training split, with the test_seen split as the eval stream), or on
+synthetic scenes (data/synthetic.py): by default with the static labels (one
+base label tensor shared by every scene), with ``--synthetic_varied_labels``
+a roll of it per scene, with ``--synthetic_analytic`` the analytic labels,
+expanded on the device. Runs on the card unless ``--device cpu``.
+``--dtype bfloat16`` trains in bfloat16 compute (``--width_mlp_dtype
+bfloat16`` only the width head's MLPs); both are recorded in config.json.
+Refused until the port has it, by the config check
+(``train_step.check_supported``): ``--backbone pointnet2`` (ROADMAP Queue 1
+item 7).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import argparse
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--dataset_root", default="", help="GraspNet-1B root (empty = synthetic data; refused)")
+    p.add_argument("--dataset_root", default="", help="GraspNet-1B root (empty = synthetic data)")
     p.add_argument("--camera", default="realsense", choices=["realsense", "kinect"])
     p.add_argument("--log_dir", default="logs/graspbalance_tpu")
     p.add_argument("--num_point", type=int, default=20000)
@@ -54,15 +55,13 @@ def config_from_args(args):
     from graspbalance_tpu_torch.train.config import Config, DataConfig, ModelConfig, TrainConfig
     from graspbalance_tpu_torch.train.train_step import check_supported
 
-    if args.dataset_root:
-        raise ValueError("--dataset_root: the GraspNet-1B loader is not ported yet (ROADMAP Queue 1 item 6)")
     cfg = Config(
         model=ModelConfig(num_view=args.num_view, backbone=args.backbone, dtype=args.dtype,
                           width_mlp_dtype=args.width_mlp_dtype),
         data=DataConfig(
             dataset_root=args.dataset_root, camera=args.camera, num_points=args.num_point,
             batch_size=args.batch_size, num_workers=args.num_workers, ncm=args.ncm,
-            analytic_labels=args.synthetic_analytic,
+            analytic_labels=args.synthetic_analytic and not args.dataset_root,
         ),
         train=TrainConfig(
             max_epoch=args.max_epoch, learning_rate=args.learning_rate, weight_decay=args.weight_decay,
@@ -79,8 +78,16 @@ def main(argv=None) -> None:
     args = parse_args(argv)
     cfg = config_from_args(args)
 
-    from graspbalance_tpu_torch.data.synthetic import SceneConfig, make_batch
     from graspbalance_tpu_torch.train.loop import train
+
+    if args.dataset_root:
+        from graspbalance_tpu_torch.data.dataset import make_dataloaders
+
+        train_batches, eval_batches, steps = make_dataloaders(cfg)
+        train(cfg, train_batches, eval_batches, steps_per_epoch=steps, device=args.device)
+        return
+
+    from graspbalance_tpu_torch.data.synthetic import SceneConfig, make_batch
 
     scene = SceneConfig(
         num_points=args.num_point,

@@ -7,12 +7,14 @@ inside them exceed ``collision_thresh`` of the boxes' voxel volume. The
 counts come from ``ops.collision.collision_counts``: the CUDA kernel on CUDA
 tensors, its plain version on CPU tensors (or with ``plain=True``).
 
-Both functions take one scene, as the JAX package's do, or a batch with a
-leading axis.
+The device functions take one scene, as the JAX package's do, or a batch
+with a leading axis. ``voxel_downsample`` is the host (numpy) version of the
+downsample, for offline tools and the native library's fallback.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from graspbalance_tpu_torch.ops.collision import (
@@ -24,6 +26,21 @@ from graspbalance_tpu_torch.ops.collision import (
 FINGER_WIDTH = 0.01
 FINGER_LENGTH = 0.06
 INVALID_COORD = 2**30  # invalid points' voxel coordinate: they sort last
+
+
+def voxel_downsample(points: np.ndarray, voxel_size: float = 0.005) -> np.ndarray:
+    """Centroid voxel downsample on the host (numpy), Open3D's
+    voxel_down_sample semantics: one centroid per occupied voxel, the
+    voxels in lexicographic order of their integer coordinates."""
+    coords = np.floor(points / voxel_size).astype(np.int64)
+    # lexicographic unique via a dense key
+    c = coords - coords.min(axis=0)
+    dims = c.max(axis=0) + 1
+    key = (c[:, 0] * dims[1] + c[:, 1]) * dims[2] + c[:, 2]
+    order = np.argsort(key, kind="stable")
+    boundaries = np.flatnonzero(np.diff(key[order])) + 1
+    groups = np.split(points[order], boundaries)
+    return np.stack([g.mean(axis=0) for g in groups]).astype(points.dtype)
 
 
 def _batched(x: torch.Tensor, ndim: int):

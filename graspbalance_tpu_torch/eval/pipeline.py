@@ -8,7 +8,8 @@ Everything up to the final host copy runs on ``device``, which defaults to
 the card: ``GraspInference`` raises when no CUDA device is present unless
 the caller passes ``device="cpu"`` (where every kernel runs its plain
 version). ``to_grasp_group_array`` emits graspnetAPI's 17-column GraspGroup
-rows.
+rows, and ``dump_dataset`` writes them for a dataset split in the layout
+graspnetAPI's evaluation reads.
 """
 
 from __future__ import annotations
@@ -124,3 +125,28 @@ def to_grasp_group_array(grasps: np.ndarray, keep: np.ndarray) -> np.ndarray:
     column order [score, width, height, depth, rotation(9), translation(3),
     object_id]."""
     return grasps[keep].astype(np.float32)
+
+
+def dump_dataset(infer: GraspInference, ds, dump_dir: str, camera: str, batch_size: int = 4, max_frames: int = 0,
+                 log=print) -> int:
+    """Run ``infer`` over a GraspNetDataset (``load_label=False``) and write
+    each frame's (G, 17) rows in graspnetAPI's GraspNetEval layout,
+    ``dump_dir/scene_xxxx/<camera>/xxxx.npy``. Returns the frames written."""
+    import os
+
+    from graspbalance_tpu_torch.data.dataset import collate
+
+    os.makedirs(dump_dir, exist_ok=True)
+    n = len(ds) if not max_frames else min(len(ds), max_frames)
+    for i in range(0, n, batch_size):
+        frames = range(i, min(i + batch_size, n))
+        batch = collate([ds[j] for j in frames])
+        grasps, keep = infer(batch["point_clouds"])
+        for j, item_idx in enumerate(frames):
+            scene, frame = ds.samples[item_idx]
+            out_dir = os.path.join(dump_dir, scene, camera)
+            os.makedirs(out_dir, exist_ok=True)
+            np.save(os.path.join(out_dir, f"{frame:04d}.npy"), to_grasp_group_array(grasps[j], keep[j]))
+        if (i // batch_size) % 10 == 0:
+            log(f"{i + len(frames)}/{n}")
+    return n

@@ -1,1 +1,2 @@
-"""Grasp label geometry."""
+"""Grasp label geometry, label matching, the losses (the grasp model's and
+the DSN's seg losses) and the analytic synthetic labels."""

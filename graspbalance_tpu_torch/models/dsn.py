@@ -1,10 +1,11 @@
 """DSN: the instance segmentation head that feeds object-balanced sampling
-(port of graspbalance_tpu/models/dsn.py, eval forward).
+(port of graspbalance_tpu/models/dsn.py).
 
 Point-transformer backbone -> foreground logits + 3-D center offsets at the
 seed level -> inverse-distance upsampling to the full cloud. ``cluster``
-runs mean shift over the predicted centers. The training labels
-(``compute_center_offset_labels``) are not ported.
+runs mean shift over the predicted centers; ``compute_center_offset_labels``
+gives the offsets' training targets (the seg losses are in
+labels/seg_losses.py, the training step in train/seg_step.py).
 """
 
 from __future__ import annotations
@@ -31,8 +32,17 @@ class DSN(nn.Module):
     @torch.no_grad()
     def forward(self, pointcloud: torch.Tensor, *, sa_inds=None, plain: bool = False) -> dict:
         """pointcloud (B, N, 3) -> dict with seed_xyz, foreground_logits
-        (B, N, 2) and center_offsets (B, N, 3), upsampled to the full cloud.
-        ``plain`` runs the kernels' plain versions."""
+        (B, N, 2) and center_offsets (B, N, 3), upsampled to the full cloud,
+        without gradients (the serving call). ``plain`` runs the kernels'
+        plain versions."""
+        return self.forward_train(pointcloud, sa_inds=sa_inds, plain=plain)
+
+    def forward_train(self, pointcloud: torch.Tensor, *, sa_inds=None, plain: bool = False) -> dict:
+        """``forward`` with gradients. BatchNorm follows the module's mode:
+        in train mode (the training step's) it normalises with the batch
+        statistics and updates the running ones at its ``momentum`` (the
+        DSN's constant 0.1); on the card the gathers' backward is the
+        scatter-add kernel (``ops/gather.py``)."""
         bb = self.backbone(pointcloud, sa_inds=sa_inds, plain=plain)
         feats = bb["seed_features"]
         fg = self.fg2(self.fg1(feats))
@@ -69,3 +79,18 @@ def cluster(
     return mean_shift_cluster(
         xyz + offsets, fg_mask, gumbel, num_seeds=num_seeds, subsample_factor=subsample_factor, **kw
     )
+
+
+def compute_center_offset_labels(xyz: torch.Tensor, instance_label: torch.Tensor, max_objects: int) -> torch.Tensor:
+    """The offsets' targets: from each point to its instance's centroid,
+    zero on the background (label 0). xyz (B, N, 3), instance_label (B, N)
+    int in [0, max_objects] -> (B, N, 3). As in the JAX package, a label
+    past max_objects joins no centroid and reads the last one (its one-hot
+    row is zero, its gather clamped)."""
+    lab = instance_label.long()
+    slots = torch.arange(max_objects + 1, device=lab.device)
+    onehot = (lab.unsqueeze(-1) == slots).to(xyz.dtype)  # (B, N, O+1)
+    sums = torch.einsum("bno,bnc->boc", onehot, xyz)
+    centroids = sums / torch.clamp(onehot.sum(dim=1), min=1.0).unsqueeze(-1)
+    target = centroids.gather(1, lab.clamp(max=max_objects).unsqueeze(-1).expand(-1, -1, 3))
+    return torch.where((lab > 0).unsqueeze(-1), target - xyz, 0.0)

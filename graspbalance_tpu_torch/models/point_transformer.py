@@ -1,5 +1,6 @@
 """Lightweight Point Transformer segmentation backbone of the DSN (port of
-graspbalance_tpu/models/point_transformer.py, eval forward).
+graspbalance_tpu/models/point_transformer.py; eval and training forward,
+BatchNorm following the module's mode).
 
   embed -> per stage: [down (FPS prefix + ball-group pooling) -> k-NN
   vector-attention blocks] -> proj, features at the seed level.

@@ -40,7 +40,7 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    dataset_root: str = ""  # GraspNet-1B (refused until ROADMAP Queue 1 item 6)
+    dataset_root: str = ""  # GraspNet-1B root (data/dataset.py); empty = synthetic scenes
     camera: str = "realsense"  # 'realsense' | 'kinect'
     num_points: int = 20000
     max_objects: int = 16

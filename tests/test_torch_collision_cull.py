@@ -31,6 +31,7 @@ from graspbalance_tpu_torch.ops.collision import (
     tile_may_hit,
     world_bounds,
 )
+from torch_threads import one_thread  # noqa: F401  (torch on one thread in this module)
 
 
 def _grasps(rng, b, g, centers, *, rot=None):

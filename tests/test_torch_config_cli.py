@@ -10,9 +10,10 @@ Tolerances:
     (it computes in float32, where its warm-up sum loses ~2e-6; the port
     in float64), at and past its last step;
   - the CLI: the same argv gives the same config on the shared fields and
-    the same first batch, exactly, as the JAX CLI; the flags the port
-    cannot honour yet raise, naming their ROADMAP item; the bfloat16
-    compute dtypes are accepted, built, and recorded in config.json.
+    the same first batch, exactly, as the JAX CLI (with --dataset_root, the
+    same config and the loaders' streams); the flags the port cannot honour
+    yet raise, naming their ROADMAP item; the bfloat16 compute dtypes are
+    accepted, built, and recorded in config.json.
 """
 
 import dataclasses
@@ -44,6 +45,7 @@ from graspbalance_tpu_torch.train.config import (
 )
 from graspbalance_tpu_torch.train.train_step import build_model, make_optimizer
 from test_torch_train import CFG, JCFG, STAGES
+from torch_threads import one_thread  # noqa: F401  (torch on one thread in this module)
 
 TPU_KNOBS = {"gather_vjp", "query_batch_chunk", "count_matmul", "query_extract_group"}
 
@@ -199,12 +201,34 @@ def test_cli_maps_argv_as_jax(argv, monkeypatch):
 
 
 @pytest.mark.parametrize("argv, match", [
-    (["--dataset_root", "/data/graspnet"], "item 6"),
     (["--backbone", "pointnet2"], "item 7"),
 ])
 def test_cli_refuses(argv, match):
     with pytest.raises(ValueError, match=match):
         cli.main(argv + ["--device", "cpu"])
+
+
+def test_cli_maps_dataset_root_as_jax(tmp_path, monkeypatch):
+    """--dataset_root (no longer refused): the same config as the JAX CLI's,
+    the analytic labels off whatever the flag, and the loop handed
+    make_dataloaders' streams and step count."""
+    argv = ["--dataset_root", str(tmp_path), "--synthetic_analytic", "--num_view", "24", "--batch_size", "3"]
+    captured = {}
+    monkeypatch.setattr(sys, "argv", ["train"] + argv)
+    monkeypatch.setattr(j_loop, "train", lambda cfg, *a, **k: captured.update(jax=(cfg, a, k)))
+    import graspbalance_tpu.data.dataset as j_dataset
+    import graspbalance_tpu_torch.data.dataset as dataset
+
+    streams = ("train_batches", "eval_batches", 7)
+    monkeypatch.setattr(j_dataset, "make_dataloaders", lambda cfg: streams)
+    monkeypatch.setattr(dataset, "make_dataloaders", lambda cfg: streams)
+    j_cli.main()
+    monkeypatch.setattr(loop, "train", lambda cfg, *a, **k: captured.update(port=(cfg, a, k)))
+    cli.main(argv + ["--device", "cpu"])
+    (jcfg, ja, jk), (cfg, a, k) = captured["jax"], captured["port"]
+    _shared(config_to_dict(cfg), j_config_to_dict(jcfg))
+    assert cfg.data.dataset_root == str(tmp_path) and not cfg.data.analytic_labels
+    assert a == ja == streams[:2] and k == {"steps_per_epoch": 7, "device": "cpu"} and jk == {"steps_per_epoch": 7}
 
 
 @pytest.mark.parametrize("flag", ["--dtype", "--width_mlp_dtype"])

@@ -102,6 +102,7 @@ from graspbalance_tpu_torch.ops.widthmlp import (
     width_mlp_fused_rot_plain,
 )
 from graspbalance_tpu_torch.weights import init_random_
+from torch_threads import one_thread  # noqa: F401  (torch on one thread in this module)
 
 pytestmark = pytest.mark.cuda
 

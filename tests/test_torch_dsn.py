@@ -43,6 +43,7 @@ from graspbalance_tpu_torch.ops.knn import knn
 from graspbalance_tpu_torch.weights import load_flax_variables, state_dict_from_flax
 from test_torch_model import _random_variables
 from tiny import TINY_SCENE
+from torch_threads import one_thread  # noqa: F401  (torch on one thread in this module)
 
 TINY_PT_STAGES = ((64, 0.2, 8, 16, 1), (32, 0.4, 8, 32, 1))
 TOL = 1e-4

@@ -24,6 +24,7 @@ from graspbalance_tpu_torch.data.synthetic import make_batch
 from graspbalance_tpu_torch.train.train_step import build_model, eval_step
 from graspbalance_tpu_torch.weights import load_flax_variables
 from test_torch_train import CFG, J_SCENE, JCFG, SCENE, pairwise_bn_mean  # noqa: F401
+from torch_threads import one_thread  # noqa: F401  (torch on one thread in this module)
 
 TOL = 1e-4
 

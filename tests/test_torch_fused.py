@@ -49,6 +49,7 @@ from graspbalance_tpu_torch.ops.widthmlp import width_mlp_fused, width_mlp_fused
 from graspbalance_tpu_torch.weights import init_random_, load_flax_variables
 from test_torch_model import FLOAT_KEYS, INDEX_KEYS, SLICE_SEEDS, _margin, _random_variables
 from tiny import TINY_NUM_SEED, TINY_NUM_VIEW, TINY_SCENE, TINY_STAGES
+from torch_threads import one_thread  # noqa: F401  (torch on one thread in this module)
 
 KERNEL_TOL = 1e-5
 MODULE_RTOL, MODULE_ATOL = 2e-4, 2e-5

@@ -19,6 +19,7 @@ import graspbalance_tpu_torch
 from graspbalance_tpu.data.synthetic import SceneConfig as JSceneConfig
 from graspbalance_tpu.data.synthetic import make_batch
 from graspbalance_tpu_torch.data.synthetic import SceneConfig, make_point_clouds, make_scenes
+from torch_threads import one_thread  # noqa: F401  (torch on one thread in this module)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPTS = ("chip_smoke", "time_main_path")  # the port's scripts at the root
@@ -49,6 +50,14 @@ def test_port_imports_no_jax():
     assert {"graspbalance_tpu_torch.ops.mlpmax", "graspbalance_tpu_torch.ops.select",
             "graspbalance_tpu_torch.ops.table_gather"} <= set(names)
     assert {"graspbalance_tpu_torch.eval.quality", "graspbalance_tpu_torch.cli.quality_gate"} <= set(names)
+    assert {
+        "graspbalance_tpu_torch.labels.seg_losses", "graspbalance_tpu_torch.eval.seg_quality",
+        "graspbalance_tpu_torch.train.seg_step", "graspbalance_tpu_torch.cli.train_seg",
+        "graspbalance_tpu_torch.cli.dsn_quality_gate", "graspbalance_tpu_torch.data.utils",
+        "graspbalance_tpu_torch.data.native", "graspbalance_tpu_torch.data.dataset",
+        "graspbalance_tpu_torch.data.generators", "graspbalance_tpu_torch.cli.infer",
+        "graspbalance_tpu_torch.cli.eval_ap",
+    } <= set(names)
     code = (
         "import importlib, json, sys\n"
         f"for name in {names!r}:\n"

@@ -34,6 +34,7 @@ from graspbalance_tpu_torch.train.config import Config, ModelConfig, TrainConfig
 from graspbalance_tpu_torch.train.train_step import create_train_state
 from graspbalance_tpu_torch.weights import state_dict_from_flax
 from tiny import TINY_NUM_SEED, TINY_NUM_VIEW, TINY_SCENE, TINY_STAGES
+from torch_threads import one_thread  # noqa: F401  (torch on one thread in this module)
 
 MIN_WEIGHTS = 4096
 STD_RTOL = 0.10

@@ -47,6 +47,7 @@ from graspbalance_tpu_torch.labels.losses import get_loss
 from graspbalance_tpu_torch.train.config import Config, DataConfig, ModelConfig
 from graspbalance_tpu_torch.train.train_step import create_train_state, to_device, train_step
 from tiny import TINY_NUM_SEED, TINY_NUM_VIEW, TINY_QUALITY_SCENE, TINY_SCENE, TINY_STAGES
+from torch_threads import one_thread  # noqa: F401  (torch on one thread in this module)
 
 LABEL_KEYS = ("grasp_labels", "grasp_widths", "grasp_tolerance")
 GEOMETRY_KEYS = ("obj_sizes", "grasp_pt_obj", "grasp_pt_mask")

@@ -58,6 +58,7 @@ from graspbalance_tpu_torch.train.config import TrainConfig
 from graspbalance_tpu_torch.train.train_step import create_train_state
 from graspbalance_tpu_torch.weights import load_flax_variables, state_dict_from_flax
 from test_torch_train import CFG, J_SCENE, JCFG, SCENE
+from torch_threads import one_thread  # noqa: F401  (torch on one thread in this module)
 
 TOL = 1e-4
 # the loop comparison's peak learning rate: Adam moves every element by up

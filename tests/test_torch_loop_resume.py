@@ -24,6 +24,7 @@ from graspbalance_tpu_torch.train.config import Config, DataConfig, ModelConfig,
 from graspbalance_tpu_torch.train.metrics import MetricAggregator
 from graspbalance_tpu_torch.train.train_step import build_model, create_train_state, train_step
 from tiny import TINY_NUM_SEED, TINY_NUM_VIEW, TINY_SCENE, TINY_STAGES
+from torch_threads import one_thread  # noqa: F401  (torch on one thread in this module)
 
 TINY_PORT_SCENE = SceneConfig(**{f.name: getattr(TINY_SCENE, f.name) for f in dataclasses.fields(SceneConfig)})
 

@@ -35,6 +35,7 @@ from graspbalance_tpu_torch.labels.geometry import (
 from graspbalance_tpu_torch.models import GraspBalance, pred_decode
 from graspbalance_tpu_torch.weights import load_flax_variables, state_dict_from_flax
 from tiny import TINY_NUM_SEED, TINY_NUM_VIEW, TINY_SCENE, TINY_STAGES
+from torch_threads import one_thread  # noqa: F401  (torch on one thread in this module)
 
 TOL = 1e-4
 SLICE_SEEDS = (1, 11)  # (scene, weights)

@@ -22,6 +22,7 @@ from graspbalance_tpu.eval.obs import object_balance_indices as j_object_balance
 from graspbalance_tpu_torch.eval import obs
 from graspbalance_tpu_torch.eval.obs import FPS_CAP, MAX_OBJECTS, max_needed_steps, object_balance_indices
 from graspbalance_tpu_torch.ops.fps import furthest_point_sample_masked_plain
+from torch_threads import one_thread  # noqa: F401  (torch on one thread in this module)
 
 
 def _present(counts, o=MAX_OBJECTS):

@@ -29,6 +29,7 @@ from graspbalance_tpu_torch.ops.interpolate import (
     three_interpolate,
 )
 from graspbalance_tpu_torch.ops.multicyl import multi_cylinder_group, multi_cylinder_group_plain
+from torch_threads import one_thread  # noqa: F401  (torch on one thread in this module)
 
 RADII = (0.02, 0.04, 0.06, 0.08)
 HMIN = -0.02

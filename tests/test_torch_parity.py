@@ -14,6 +14,7 @@ from graspbalance_tpu.labels.geometry import (
     batch_viewpoint_params_to_matrix,
     generate_grasp_views_np,
 )
+from torch_threads import one_thread  # noqa: F401  (torch on one thread in this module)
 
 
 class TestBatchNormParity:

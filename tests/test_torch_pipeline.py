@@ -26,6 +26,7 @@ from graspbalance_tpu_torch.weights import load_flax_variables
 from test_torch_dsn import TINY_PT_STAGES, jax_gumbel
 from test_torch_model import _random_variables
 from tiny import TINY_NUM_SEED, TINY_NUM_VIEW, TINY_QUALITY_SCENE, TINY_SCENE, TINY_STAGES
+from torch_threads import one_thread  # noqa: F401  (torch on one thread in this module)
 
 TOL = 1e-4
 # compact clutter (the quality gate's scene), where the collision filter

@@ -33,6 +33,7 @@ from graspbalance_tpu_torch.eval.collision import collision_detect, voxel_downsa
 from graspbalance_tpu_torch.eval.nms import grasp_nms
 from graspbalance_tpu_torch.eval.pipeline import make_postprocess
 from graspbalance_tpu_torch.ops.collision import collision_counts, pack_grasp_params
+from torch_threads import one_thread  # noqa: F401  (torch on one thread in this module)
 
 
 def _t(x):

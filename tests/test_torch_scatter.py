@@ -22,6 +22,7 @@ from graspbalance_tpu.ops.pallas.scatter_kernel import scatter_add_matmul
 from graspbalance_tpu_torch.ops import gather_points, group_points
 from graspbalance_tpu_torch.ops.gather import _flat_take
 from graspbalance_tpu_torch.ops.scatter import scatter_add, scatter_add_plain
+from torch_threads import one_thread  # noqa: F401  (torch on one thread in this module)
 
 FLOAT_TOL = 2e-5
 

@@ -32,6 +32,7 @@ from graspbalance_tpu_torch.ops.select import (
     multicyl_select_plain,
     select_twin,
 )
+from torch_threads import one_thread  # noqa: F401  (torch on one thread in this module)
 
 # every radii x depths the kernel takes
 SHAPES = [(r, h) for r in range(1, 8) for h in range(1, 8) if r * h <= MAX_COMBOS]

@@ -95,6 +95,7 @@ from graspbalance_tpu_torch.train.train_step import (
 )
 from graspbalance_tpu_torch.weights import load_flax_variables, state_dict_from_flax
 from tiny import TINY_NUM_SEED, TINY_NUM_VIEW, TINY_SCENE, TINY_STAGES
+from torch_threads import one_thread  # noqa: F401  (torch on one thread in this module)
 
 TOL = 1e-4
 GRAD_TOL = 1e-3
