@@ -157,6 +157,29 @@ and a GraspNet-1B-shaped dump. Phases, each fatal on failure:
      over a DUMP_FRAMES-frame GraspNet-1B-shaped tree written to a
      temporary directory (eval/pipeline.dump_dataset): one (G, 17) float32
      file a frame in graspnetAPI's layout, rotations orthonormal.
+ 19. the models the JAX package builds besides the default, and the kernels'
+     new ranges: FPS's streaming mode (K1 and K4 past 65,536 and 32,768
+     points) at STREAM_SIZES, exact against the plain versions and timed at
+     STREAM_TIMED_M slots; GraspBalance(backbone='pointnet2') at full
+     width: forward + decode through the kernels against the plain versions
+     (fps, multicyl and widthmlp launched), clouds/s and p50; the cylinder
+     query at 20 and 28 combos on its seeds, idx and rel bit-equal and
+     timed; GraspInference without and with OBS (as phase 7; knn,
+     fps_masked and collision launched) and timed, with a torch.profiler
+     pass (device ms and busy share); the fused configuration (one mlp-max
+     launch per SA stage, widthmlp_rel; with OBS as phase 12); one training
+     step at TRAIN_BATCH through the kernels against the plain versions
+     (loss within LOSS_RTOL, gradients within GRAD_TOL), then
+     cli/train --backbone pointnet2 for P2_TRAIN_STEPS steps (ms/step, peak
+     memory); and the default model's variants, eval against the plain
+     versions: multi_scale=False (the query at 1 x 4 combos, the width MLP
+     at one scale), num_depth=5 (4 x 5 combos) and query_order='nearest'
+     (the plain nearest queries, no cylinder-query kernel, then the width
+     MLP); then K9's other callers against their plain versions: the
+     bfloat16 DSN forward at full width (fps and knn launched, outputs
+     within BF16_DSN_RTOL) and LocalAggregation(grouper='knn') at
+     KNN_GROUPER_STAGES (one knn launch each, within KNN_GROUPER_RTOL).
+     Prints the launches per kernel over these paths.
 
 Prints the kernel table as one JSON line, a row per TPU kernel (K2 and K3 are
 covered by K1's kernel): its launches on the path named in its "path" (the
@@ -171,7 +194,9 @@ rows of the kernels redesigned last (the masked FPS and the class-plane
 selection) are marked "redesigned", with their device ms (their earlier
 times are printed in phases 6 and 10); each row's "gate_launches" counts
 its launches in phase 16's short gate, each row's "dsn_train_launches"
-in one DSN training step of phase 17; and as the last
+in one DSN training step of phase 17, each row's "pointnet2_launches" over
+phase 19's paths (K1 and K4 also with their streaming mode's ms at each N,
+K7 with its ms at 20 and 28 combos); and as the last
 line {"ok": true, "device": {...}}. Without CUDA it exits non-zero before
 any result. Imports nothing of JAX.
 """
@@ -273,7 +298,32 @@ PATH_KERNELS = {
     "train_bf16": ("fps", "multicyl", "scatter"),
     "gate": ("fps", "multicyl", "scatter", "widthmlp", "collision"),
     "dsn_train": ("fps", "knn", "scatter"),
+    # phase 19: the PointNet++ SSG model and the default model's variants
+    "p2_main": ("fps", "multicyl", "widthmlp"),
+    "p2_no_obs": ("fps", "multicyl", "widthmlp", "collision"),
+    "p2_obs": ("fps", "multicyl", "widthmlp", "knn", "fps_masked", "collision"),
+    "p2_fused_main": ("fps", "multicyl", "mlpmax", "widthmlp_rel"),
+    "p2_fused_obs": ("fps", "multicyl", "mlpmax", "widthmlp_rel", "knn", "fps_masked", "collision"),
+    "p2_train": ("fps", "multicyl", "scatter"),
+    "single_scale": ("fps", "multicyl", "widthmlp"),
+    "depth5": ("fps", "multicyl", "widthmlp"),
+    "nearest": ("fps", "widthmlp"),
+    "dsn_bf16": ("fps", "knn"),
 }
+# phase 19: LocalAggregation(grouper='knn') at DRP stages 2 and 3's
+# (points, channels, K), and the tolerances of K9's other callers against
+# their plain versions, relative to the largest |output| (the kNN's indices
+# are exact, so both are bit-equal in practice)
+KNN_GROUPER_STAGES = ((1024, 256, 32), (512, 256, 16))
+KNN_GROUPER_RTOL = 1e-5
+BF16_DSN_RTOL = 1e-2
+# phase 19: FPS's streaming mode (past the register routes' 65,536 points,
+# 32,768 masked) at these (clouds, N, slots checked against the plain
+# version), timed at STREAM_TIMED_M slots; the cylinder query past 16 combos
+STREAM_SIZES = ((BATCH, 100_000, 64), (2, 1_048_576, 16))
+STREAM_TIMED_M = 256
+MANY_COMBOS = {20: (0.01, 0.02, 0.03, 0.04, 0.05), 28: (0.01, 0.02, 0.03, 0.04, 0.05, 0.06, 0.07)}
+P2_TRAIN_STEPS = 4  # cli/train --backbone pointnet2 steps at TRAIN_BATCH
 # one row per TPU kernel: (its number, the name of the row, the kernel
 # measured for it, the source, the TPU kernel's def, the path whose launches
 # the row reports); K2 and K3 compute K1's function in other layouts and
@@ -969,6 +1019,294 @@ def train_phase(dev, smi: str):
           f"peak device memory {peak_gb:.2f} GB ({smi})")
     profile_calls({"train": lambda: train_step(model, opt, sched, batch, 0, cfg)}, calls=2)
     return launches, *scatter, statistics.median(ms)
+
+
+def stream_phase(dev, smi: str) -> dict:
+    """Phase 19a: K1 and K4 in the streaming mode, exact against their
+    plain versions, timed. Returns {name: {N: ms}} at STREAM_TIMED_M slots."""
+    import torch
+
+    from graspbalance_tpu_torch import _build
+    from graspbalance_tpu_torch.ops.fps import (
+        CLUSTER_MAX_POINTS,
+        MASKED_BLOCK_MAX_POINTS,
+        furthest_point_sample,
+        furthest_point_sample_masked,
+        furthest_point_sample_masked_plain,
+        furthest_point_sample_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = {"fps": {}, "fps_masked": {}}
+    for b, n, m in STREAM_SIZES:
+        require(n > CLUSTER_MAX_POINTS and n > MASKED_BLOCK_MAX_POINTS, "stream sizes must pass the register routes")
+        # a scene-sized box, with near-origin points that are never picked
+        xyz = (torch.rand((b, n, 3), generator=gen, device=dev) - 0.5) * torch.tensor([1.0, 1.0, 0.5], device=dev)
+        xyz[:, 7::9973] = 0.001
+        _build.reset_launches()
+        got = furthest_point_sample(xyz, m)
+        require(_build.launches["fps"] == 1, f"FPS at N={n}: launches {dict(_build.launches)}")
+        want = furthest_point_sample_plain(xyz, m)
+        require(torch.equal(got, want), f"FPS streaming kernel != plain at N={n}: {int((got != want).sum())} differ")
+        out["fps"][n] = cuda_ms(lambda: furthest_point_sample(xyz, STREAM_TIMED_M), 3)
+        rows = 4 * b  # each cloud under four masks
+        mxyz = xyz.repeat_interleave(4, dim=0).contiguous()
+        valid = torch.rand((rows, n), generator=gen, device=dev) < 0.5
+        valid[0] = False  # a row with no valid point: 0 everywhere
+        valid[1, : n // 2] = False  # the seed is the first valid index
+        valid[2] = True
+        _build.reset_launches()
+        needed = torch.tensor(m - 8, dtype=torch.int32, device=dev)
+        got = furthest_point_sample_masked(mxyz, valid, m, max_needed=needed)
+        require(_build.launches["fps_masked"] == 1, f"masked FPS at N={n}: launches {dict(_build.launches)}")
+        want = furthest_point_sample_masked_plain(mxyz, valid, m - 8)
+        require(torch.equal(got[:, : m - 8], want) and bool((got[:, m - 8 :] == 0).all()),
+                f"masked FPS streaming kernel != plain at N={n}: {int((got[:, : m - 8] != want).sum())} differ")
+        out["fps_masked"][n] = cuda_ms(lambda: furthest_point_sample_masked(mxyz, valid, STREAM_TIMED_M), 3)
+        # each step updates every (valid) point: 10 operations; the inputs
+        # read once, the slots written once
+        steps = STREAM_TIMED_M - 1
+        k1 = bound(xyz.numel() * 4 + b * STREAM_TIMED_M * 4, steps * b * n * 10)
+        k4 = bound(mxyz.numel() * 4 + valid.numel() + rows * STREAM_TIMED_M * 4, steps * float(valid.sum()) * 10)
+        print(f"FPS streaming mode, ({b}, {n}, 3) -> {m}: exact; ({rows} masked rows) -> {m}, max_needed {m - 8}: "
+              f"exact; at {STREAM_TIMED_M} slots {out['fps'][n]:.4f} ms "
+              f"({out['fps'][n] / steps * 1e3:.3f} us per step; bound {k1[0]:.5f} ms, {k1[1]}), masked "
+              f"{out['fps_masked'][n]:.4f} ms ({out['fps_masked'][n] / steps * 1e3:.3f} us per step; bound "
+              f"{k4[0]:.5f} ms, {k4[1]}) ({smi})")
+        del xyz, mxyz, valid
+    return out
+
+
+def pointnet2_phase(dev, smi: str, cloud, dsn) -> tuple[dict, dict]:
+    """Phase 19 (see the module docstring): the PointNet++ SSG model and
+    the default model's variants at full width. Returns (path launches,
+    the streaming and many-combo times)."""
+    import tempfile
+
+    import torch
+
+    from graspbalance_tpu_torch import _build
+    from graspbalance_tpu_torch.cli import train as cli
+    from graspbalance_tpu_torch.data.synthetic import SceneConfig, make_batch
+    from graspbalance_tpu_torch.eval.pipeline import GraspInference
+    from graspbalance_tpu_torch.models import GraspBalance, pred_decode
+    from graspbalance_tpu_torch.ops.multicyl import multi_cylinder_group, multi_cylinder_group_plain
+    from graspbalance_tpu_torch.ops.scatter import scatter_add_plain
+    from graspbalance_tpu_torch.train.config import Config, ModelConfig
+    from graspbalance_tpu_torch.train.train_step import build_model, make_optimizer, to_device, train_step
+    from graspbalance_tpu_torch.weights import init_random_
+
+    extra = {"stream": stream_phase(dev, smi)}
+    launches = {}
+
+    def eval_path(name, model):
+        """Forward + decode through the kernels (PATH_KERNELS[name]
+        launched), against the plain versions as phase 4."""
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        with torch.no_grad():
+            ep = model(cloud)
+            grasps, valid = pred_decode(ep)
+            torch.cuda.synchronize()
+            launches[name] = dict(_build.launches)
+            require(all(launches[name][k] > 0 for k in PATH_KERNELS[name]),
+                    f"{name}: a kernel of the path was not launched: {launches[name]}")
+            ep_p = model(cloud, plain=True)
+            grasps_p, valid_p = pred_decode(ep_p)
+        a, d = model.grasp_params.num_angle, model.grasp_params.num_depth
+        require(ep["grasp_score_pred"].shape == (BATCH, model.backbone.num_seed, a, d), f"{name}: head shapes")
+        print(f"{name} forward+decode: launches {launches[name]}; kernel vs plain: "
+              + compare_decoded(ep, ep_p, grasps, grasps_p, valid, valid_p, name))
+        return ep
+
+    # 19b. the PointNet++ SSG model: forward + decode, timed, and profiled
+    p2 = init_random_(GraspBalance(backbone="pointnet2"), SEED).to(dev).eval()
+    ep = eval_path("p2_main", p2)
+    iters = []
+    with torch.no_grad():
+        for _ in range(MAIN_ITERS + 1):
+            t1 = time.perf_counter()
+            pred_decode(p2(cloud))
+            torch.cuda.synchronize()
+            iters.append(time.perf_counter() - t1)
+    print(f"pointnet2 forward+decode bs={BATCH}, {NUM_POINTS} pts: {rate_line(iters[1:])} ({smi})")
+
+    # 19c. the cylinder query past 16 combos, on this model's seeds and rotations
+    wg = p2.width_grouping
+    seeds, rot = ep["fp2_xyz"].contiguous(), ep["grasp_top_view_rot"].contiguous()
+    extra["multicyl"] = {}
+    for n_combo, hmaxs in MANY_COMBOS.items():
+        qargs = (cloud, seeds, rot, wg.radii, wg.hmin, hmaxs, wg.nsample)
+        _build.reset_launches()
+        idx_k, rel_k = multi_cylinder_group(*qargs, emit_rel=True)
+        idx_p, rel_p = multi_cylinder_group_plain(*qargs, emit_rel=True)
+        require(_build.launches["multicyl"] == 1 and idx_k.shape[1] * idx_k.shape[2] == n_combo,
+                f"query at {n_combo} combos: launches {dict(_build.launches)}, shape {tuple(idx_k.shape)}")
+        require(torch.equal(idx_k, idx_p) and torch.equal(rel_k, rel_p),
+                f"query kernel != plain at {n_combo} combos: {int((idx_k != idx_p).sum())} indices differ")
+        extra["multicyl"][n_combo] = (cuda_ms(lambda: multi_cylinder_group(*qargs), 5),
+                                      cuda_ms(lambda: multi_cylinder_group_plain(*qargs), 1))
+        print(f"query at {n_combo} combos {tuple(idx_k.shape)}: idx and rel bit-equal to the plain version; "
+              f"{extra['multicyl'][n_combo][0]:.4f} ms indices only, plain {extra['multicyl'][n_combo][1]:.4f} ms "
+              f"({smi})")
+        del idx_k, rel_k, idx_p, rel_p
+
+    # 19d. GraspInference without and with OBS, timed
+    pipelines = {"p2_no_obs": GraspInference(p2), "p2_obs": GraspInference(p2, dsn, use_obs=True)}
+    for name, infer in pipelines.items():
+        launches[name] = check_pipeline(name, infer, cloud)
+        iters = []
+        for _ in range(PIPELINE_ITERS + 1):
+            t1 = time.perf_counter()
+            infer(cloud)
+            iters.append(time.perf_counter() - t1)
+        print(f"pointnet2 GraspInference {name} bs={BATCH}, {NUM_POINTS} pts: {rate_line(iters[1:])} ({smi})")
+    with torch.no_grad():
+        profile_calls({"p2_forward_decode": lambda: pred_decode(p2(cloud)),
+                       **{name: functools.partial(infer, cloud) for name, infer in pipelines.items()}})
+
+    # 19e. the fused configuration: the mlp-max kernel on the SA stages
+    fused = GraspBalance(backbone="pointnet2", fused_backbone_min_nsample=0, width_impl="fused_pallas")
+    fused.load_state_dict(p2.state_dict(), strict=True)
+    fused = fused.to(dev).eval()
+    eval_path("p2_fused_main", fused)
+    require(launches["p2_fused_main"]["mlpmax"] == len(fused.backbone.stages),
+            f"fused pointnet2: one mlp-max launch per SA stage, got {launches['p2_fused_main']}")
+    launches["p2_fused_obs"] = check_pipeline("p2_fused_obs", GraspInference(fused, dsn, use_obs=True), cloud)
+    del fused
+
+    # 19f. training: one step through the kernels against one through the
+    # plain versions from the same state, then cli/train --backbone pointnet2
+    cfg = Config(model=ModelConfig(backbone="pointnet2"))
+    # on the card before the steps, as phase 9's batch: the steps time the
+    # step, not the labels' upload
+    batch = to_device(make_batch(SEED, TRAIN_BATCH, SceneConfig(num_points=NUM_POINTS, static_labels=True)), dev)
+    model = init_random_(build_model(cfg, device=dev), SEED)
+    model_p = copy.deepcopy(model)
+    (opt, sched), (opt_p, sched_p) = make_optimizer(model, cfg, STEPS_PER_EPOCH), make_optimizer(
+        model_p, cfg, STEPS_PER_EPOCH)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    loss_k = float(train_step(model, opt, sched, batch, 0, cfg)["loss/overall_loss"])
+    torch.cuda.synchronize()
+    step_launches = dict(_build.launches)
+    require(all(step_launches[k] > 0 for k in PATH_KERNELS["p2_train"]),
+            f"pointnet2 training step: launches {step_launches}")
+    with gather_backward(scatter_add_plain):
+        loss_p = float(train_step(model_p, opt_p, sched_p, batch, 0, cfg, plain=True)["loss/overall_loss"])
+    require(abs(loss_k - loss_p) <= LOSS_RTOL * abs(loss_p), f"pointnet2 training loss: kernel {loss_k} vs plain {loss_p}")
+    grad_errs = {name: float((p.grad - q.grad).abs().max()) / max(float(q.grad.abs().max()), 1e-30)
+                 for (name, p), (_, q) in zip(model.named_parameters(), model_p.named_parameters())}
+    worst = max(grad_errs, key=grad_errs.get)
+    require(grad_errs[worst] <= GRAD_TOL, f"pointnet2 gradient of {worst}: {grad_errs[worst]:.3g} > {GRAD_TOL}")
+    print(f"pointnet2 train step kernel vs plain: launches {step_launches}; loss {loss_k!r} vs {loss_p!r}; "
+          f"gradients: largest error {grad_errs[worst]:.3g} of the tensor's max |grad| ({worst})")
+    del model_p, opt_p, sched_p
+    torch.cuda.reset_peak_memory_stats()
+    iters = []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        train_step(model, opt, sched, batch, 0, cfg)
+        torch.cuda.synchronize()
+        iters.append((time.perf_counter() - t1) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    extra["p2_step"] = (statistics.median(iters), peak_gb)
+    print(f"pointnet2 train step bs={TRAIN_BATCH}, {NUM_POINTS} pts, through the kernels: median "
+          f"{extra['p2_step'][0]:.3f} ms/step (min {min(iters):.3f}, max {max(iters):.3f} over {len(iters)} steps); "
+          f"peak device memory {peak_gb:.2f} GB ({smi})")
+    profile_calls({"p2_train": lambda: train_step(model, opt, sched, batch, 0, cfg)}, calls=2)
+    del model, opt, sched, batch
+
+    root = tempfile.mkdtemp(prefix="gb_p2_")
+    argv = ["--backbone", "pointnet2", "--max_epoch", "1", "--synthetic_steps", str(P2_TRAIN_STEPS), "--batch_size",
+            str(TRAIN_BATCH), "--num_point", str(NUM_POINTS), "--device", str(dev), "--log_dir", root]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    cli.main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches["p2_train"] = dict(_build.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(all(launches["p2_train"][k] > 0 for k in PATH_KERNELS["p2_train"])
+            and launches["p2_train"]["fps"] == P2_TRAIN_STEPS,
+            f"cli/train --backbone pointnet2: launches {launches['p2_train']} over {P2_TRAIN_STEPS} steps")
+    rec = read_jsonl(f"{root}/loop_metrics.jsonl")[-1]
+    lines = read_jsonl(f"{root}/train_metrics.jsonl")
+    require(all(all_finite(v for k, v in r.items() if k != "time") for r in lines), f"train metric lines {lines}")
+    print(f"pointnet2 training (cli/train --backbone pointnet2, bs={TRAIN_BATCH}, {P2_TRAIN_STEPS} steps, "
+          f"{NUM_POINTS} pts): launches {launches['p2_train']}; {rec['loop/ms_per_step']:.3f} ms/step (the epoch's "
+          f"steps, first included; host clock); {cli_s:.1f} s in all; loss {lines[-1]['loss/overall_loss']!r}; peak "
+          f"device memory {peak_gb:.2f} GB ({smi})")
+    extra["p2_train"] = (rec["loop/ms_per_step"], peak_gb)
+
+    # 19g. the default model's variants, eval at full width
+    for name, kw in (("single_scale", dict(multi_scale=False)),
+                     ("depth5", dict(num_depth=5, hmax_list=MANY_COMBOS[20])),
+                     ("nearest", dict(query_order="nearest"))):
+        eval_path(name, init_random_(GraspBalance(**kw), SEED).to(dev).eval())
+        if name == "nearest":
+            require(launches[name]["multicyl"] == 0, f"nearest: the index-order query kernel ran: {launches[name]}")
+
+    launches.update(knn_callers_phase(dev, cloud, dsn))
+    return launches, extra
+
+
+def knn_callers_phase(dev, cloud, dsn) -> dict:
+    """Phase 19h: K9's other callers, the bfloat16 DSN (phase 6's weights)
+    and LocalAggregation(grouper='knn') at DRP stages 2 and 3's widths, each
+    through the kernels against its plain versions (the kNN on float32
+    coordinates either way: indices exact, so the rest runs the same ops).
+    Returns the launches of each."""
+    import torch
+
+    from graspbalance_tpu_torch import _build
+    from graspbalance_tpu_torch.models.drp import LocalAggregation
+    from graspbalance_tpu_torch.models.dsn import DSN
+
+    out = {}
+    dsn_bf16 = DSN(dtype=torch.bfloat16)
+    dsn_bf16.load_state_dict(dsn.state_dict(), strict=True)
+    dsn_bf16 = dsn_bf16.to(dev).eval()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    out_k = dsn_bf16(cloud)
+    torch.cuda.synchronize()
+    out["dsn_bf16"] = dict(_build.launches)
+    require(all(out["dsn_bf16"][k] > 0 for k in PATH_KERNELS["dsn_bf16"]),
+            f"bf16 DSN: a kernel of the path was not launched: {out['dsn_bf16']}")
+    out_p = dsn_bf16(cloud, plain=True)
+    errs = {}
+    for key in ("seed_xyz", "foreground_logits", "center_offsets"):
+        errs[key], top = float((out_k[key] - out_p[key]).abs().max()), float(out_p[key].abs().max())
+        require(out_k[key].shape == out_p[key].shape and bool(torch.isfinite(out_k[key]).all())
+                and errs[key] <= BF16_DSN_RTOL * top, f"bf16 DSN {key}: kernel vs plain {errs[key]} of max {top}")
+    print(f"bf16 DSN forward bs={BATCH}, {NUM_POINTS} pts: launches {out['dsn_bf16']}; kernel vs plain max "
+          f"errors {errs}")
+    del dsn_bf16, out_k, out_p
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out["knn_grouper"] = dict.fromkeys(_build.launches, 0)
+    for npoint, channels, nsample in KNN_GROUPER_STAGES:
+        xyz = cloud[:, :npoint].contiguous()
+        feats = torch.randn((BATCH, npoint, channels), generator=gen, device=dev)
+        for feature_type in ("dp_fj", "dp_fj_df"):
+            torch.manual_seed(SEED)
+            la = LocalAggregation(channels, 0.0, nsample, grouper="knn", feature_type=feature_type).to(dev).eval()
+            with torch.no_grad():
+                _build.reset_launches()
+                f_k = la(xyz, feats)
+                torch.cuda.synchronize()
+                require(_build.launches["knn"] == 1, f"knn grouper: launches {dict(_build.launches)}")
+                for k, v in _build.launches.items():
+                    out["knn_grouper"][k] += v
+                f_p = la(xyz, feats, plain=True)
+            err, top = float((f_k - f_p).abs().max()), float(f_p.abs().max())
+            require(err <= KNN_GROUPER_RTOL * top, f"knn grouper {feature_type} at K={nsample}: {err} of max {top}")
+            print(f"LocalAggregation(grouper='knn', {feature_type}) on ({BATCH}, {npoint}, {channels}), K={nsample}: "
+                  f"kernel vs plain max err {err!r} of max {top!r}")
+    return out
 
 
 def read_jsonl(path: str) -> list[dict]:
@@ -1971,6 +2309,13 @@ def main() -> int:
     path_launches["dsn_train"] = dsn_train_phase(dev, smi)
     path_launches["infer"] = data_phase(dev, smi)
 
+    # 19. the PointNet++ SSG model, FPS's streaming mode, the query past 16
+    # combos and the default model's variants
+    p2_launches, p2_extra = pointnet2_phase(dev, smi, cloud, dsn)
+    path_launches.update(p2_launches)
+    print("pointnet2 and variant paths, launches per kernel: " + json.dumps(
+        {k: sum(p2_launches[p][k] for p in p2_launches) for k in _build.launches}))
+
     table = [
         {
             "name": name,
@@ -1991,6 +2336,11 @@ def main() -> int:
             **({"redesigned": True, "device_ms": device_ms[measured]} if measured in REDESIGNED else {}),
             "gate_launches": path_launches["gate"][measured],
             "dsn_train_launches": path_launches["dsn_train"][measured],
+            "pointnet2_launches": sum(p2_launches[p][measured] for p in p2_launches),
+            **({"streaming_ms": {str(n): ms for n, ms in p2_extra["stream"][measured].items()},
+                "streaming_slots": STREAM_TIMED_M} if measured in p2_extra["stream"] else {}),
+            **({"many_combos_ms": {str(c): t[0] for c, t in p2_extra["multicyl"].items()}}
+               if measured == "multicyl" else {}),
         }
         for k_num, name, measured, source, replaces, path in KERNEL_TABLE
     ]

@@ -42,6 +42,7 @@ _SIGNATURES = {
     # name: argument types; every entry point returns a cudaError_t as int
     "gb_fps": (_P, _P, _P, _I, _I, _I, _P),
     "gb_fps_chain": (_P, _P, _P, _I, _I, _I, _P),
+    "gb_fps_stream": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "gb_multicyl": (_P, _P, _P, _P, _P, ctypes.c_float, _I, _I, _P, _P, _I, _I, _I, _I, _P),
     "gb_widthmlp": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "gb_knn": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
@@ -104,6 +105,8 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.gb_scatter_add_scratch.argtypes = (_I,) * 4
     lib.gb_scatter_add_scratch.restype = ctypes.c_longlong
+    lib.gb_fps_stream_slots.argtypes = (_I,)
+    lib.gb_fps_stream_slots.restype = ctypes.c_longlong
     lib.gb_error_string.argtypes = (ctypes.c_int,)
     lib.gb_error_string.restype = ctypes.c_char_p
     return lib

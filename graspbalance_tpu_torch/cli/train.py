@@ -11,9 +11,9 @@ a roll of it per scene, with ``--synthetic_analytic`` the analytic labels,
 expanded on the device. Runs on the card unless ``--device cpu``.
 ``--dtype bfloat16`` trains in bfloat16 compute (``--width_mlp_dtype
 bfloat16`` only the width head's MLPs); both are recorded in config.json.
-Refused until the port has it, by the config check
-(``train_step.check_supported``): ``--backbone pointnet2`` (ROADMAP Queue 1
-item 7).
+``--backbone pointnet2`` trains the PointNet++ SSG backbone
+(models/backbone.py) in place of DRP. As in the JAX CLI, the scenes and the
+heads keep the default 12 angles and 4 depths.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ def parse_args(argv=None):
     p.add_argument("--num_workers", type=int, default=2)
     p.add_argument("--ncm", action="store_true", default=True, help="noisy-clean mix")
     p.add_argument("--no-ncm", dest="ncm", action="store_false")
-    p.add_argument("--backbone", default="drp", choices=["drp", "pointnet2"], help="pointnet2 is refused")
+    p.add_argument("--backbone", default="drp", choices=["drp", "pointnet2"], help="the backbone")
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"], help="compute dtype")
     p.add_argument("--width_mlp_dtype", default=None, choices=[None, "bfloat16"],
                    help="the width head's MLPs' compute dtype (default: --dtype)")

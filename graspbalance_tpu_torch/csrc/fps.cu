@@ -94,6 +94,33 @@
 // points, take 1,024 threads with 32 distances each in registers and read
 // their coordinates, and the winner's, through L1 every step. Both give the
 // plain version's indices bit for bit.
+//
+// Streaming mode (gb_fps_stream): clouds past the two register-resident
+// routes (N > 65,536 in the main mode, N > 32,768 in the masked mode) up
+// to any N that int32 indexes. The running distances live in global
+// memory, (B, N) f32 updated in place, and the coordinates are read as
+// (B, 3, N) planes every step; at 2^20 points that is 16 MB a step, which
+// the H100's 50 MB L2 keeps resident, so a step streams from L2, not HBM.
+// One cooperative launch, P blocks per cloud (as many as are co-resident,
+// at most one per kStreamThreads points), block p of a cloud taking the
+// points p * T + t + k * P * T. A step:
+//   1. each thread updates its points' distances and keeps its best
+//      (value, lowest index), visiting its points in rising index order;
+//   2. each warp reduces its lanes' (order key, index) by two redux.sync,
+//      the block its warps' winners in shared memory, and warp 0 stores the
+//      block's winner into its slot of a parity-buffered global array;
+//   3. one grid-wide barrier (cooperative groups); then warp 0 of every
+//      block reduces its cloud's P slots (read past L1, which is not
+//      coherent across SMs) by the same rule, and every thread reads the
+//      winner's coordinates.
+// Each reduction prefers the larger key, then the lower index, so no step
+// depends on the order of blocks, warps or arrivals, and the indices equal
+// the plain version's bit for bit. Step j writes buffer j % 2; a block
+// writes step j + 2's slot only after passing step j + 1's barrier, which
+// every block reaches after reading step j's slots. The masked mode takes
+// the same kernel: the wrapper folds validity into the initial distances
+// and passes each row's seed (its first valid index) and max_needed as
+// device int32s.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -534,7 +561,121 @@ cudaError_t launch_staged(const float* xyz, const bool* valid, const int32_t* ne
   return cudaGetLastError();
 }
 
+constexpr int kStreamThreads = 256;
+constexpr int kStreamWarps = kStreamThreads / 32;
+constexpr int kStreamMaxParts = 1024;  // blocks per cloud; the slots' capacity
+
+__global__ void __launch_bounds__(kStreamThreads)
+    fps_stream_kernel(const float* __restrict__ planes, float* __restrict__ dist, const int32_t* __restrict__ seed,
+                      const int32_t* __restrict__ needed, int n, int m, int cloud0, int parts,
+                      int2* __restrict__ slots, int32_t* __restrict__ out) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ int2 s_warp[kStreamWarps];
+  __shared__ int s_win;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int local = blockIdx.x / parts;  // the cloud within this launch
+  const int part = blockIdx.x % parts;
+  const int cloud = cloud0 + local;
+  const float* px = planes + static_cast<size_t>(cloud) * 3 * n;
+  const float* py = px + n;
+  const float* pz = py + n;
+  float* d = dist + static_cast<size_t>(cloud) * n;
+  int32_t* o = out + static_cast<size_t>(cloud) * m;
+  const int steps = needed != nullptr ? min(max(*needed, 1), m) : m;
+  const int first = seed != nullptr ? seed[cloud] : 0;
+  if (part == 0) {
+    for (int j = steps + t; j < m; j += kStreamThreads) o[j] = 0;
+    if (t == 0) o[0] = first;
+  }
+  const size_t buf_stride = gridDim.x;  // slots[b * gridDim.x + block]
+  const int2* cloud_slots = slots + static_cast<size_t>(local) * parts;
+  const int stride = parts * kStreamThreads;
+  float lx = __ldg(px + first), ly = __ldg(py + first), lz = __ldg(pz + first);
+  for (int j = 1; j < steps; ++j) {
+    float bv = -INFINITY;
+    unsigned bi = 0xffffffffu;
+    for (int i = part * kStreamThreads + t; i < n; i += stride) {
+      const float dd = sq3(__fsub_rn(__ldg(px + i), lx), __fsub_rn(__ldg(py + i), ly), __fsub_rn(__ldg(pz + i), lz));
+      const float nd = fminf(d[i], dd);
+      d[i] = nd;
+      if (nd > bv) {  // i rises: strict > keeps the lowest index
+        bv = nd;
+        bi = i;
+      }
+    }
+    int key = order_key(bv);
+    warp_winner(key, bi);
+    if (lane == 0) s_warp[warp] = make_int2(key, static_cast<int>(bi));
+    __syncthreads();
+    const size_t buf = (j & 1) * buf_stride;
+    if (warp == 0) {
+      const int2 c = lane < kStreamWarps ? s_warp[lane] : make_int2(INT_MIN, -1);
+      key = c.x;
+      bi = static_cast<unsigned>(c.y);
+      warp_winner(key, bi);
+      if (lane == 0) slots[buf + blockIdx.x] = make_int2(key, static_cast<int>(bi));
+    }
+    grid.sync();
+    if (warp == 0) {
+      key = INT_MIN;
+      bi = 0xffffffffu;
+      for (int e = lane; e < parts; e += 32) {
+        const int2 c = __ldcg(cloud_slots + buf + e);
+        if (c.x > key || (c.x == key && static_cast<unsigned>(c.y) < bi)) {
+          key = c.x;
+          bi = static_cast<unsigned>(c.y);
+        }
+      }
+      warp_winner(key, bi);
+      if (lane == 0) s_win = static_cast<int>(bi);
+    }
+    __syncthreads();
+    const int w = s_win;
+    if (part == 0 && t == 0) o[j] = w;
+    lx = __ldg(px + w), ly = __ldg(py + w), lz = __ldg(pz + w);
+  }
+}
+
+cudaError_t launch_stream(const float* planes, float* dist, const int32_t* seed, const int32_t* needed,
+                          int32_t* out, int2* slots, int b, int n, int m, cudaStream_t stream) {
+  if (b < 1 || n < 1 || m < 1) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fps_stream_kernel, kStreamThreads, 0);
+  if (err != cudaSuccess) return err;
+  const int resident = sms * per_sm;  // blocks that can all run at once
+  if (resident < 1) return cudaErrorInvalidConfiguration;
+  const int want = min((n + kStreamThreads - 1) / kStreamThreads, kStreamMaxParts);
+  for (int c0 = 0; c0 < b; c0 += resident) {
+    const int clouds = min(b - c0, resident);
+    int parts = max(1, min(want, resident / clouds));
+    unsigned grid = static_cast<unsigned>(clouds * parts);
+    void* args[] = {&planes, &dist, &seed, &needed, &n, &m, &c0, &parts, &slots, &out};
+    err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(fps_stream_kernel), dim3(grid), dim3(kStreamThreads),
+                                      args, 0, stream);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// Streaming mode, any N (see the note at the top). planes: (B, 3, N) f32;
+// dist: (B, N) f32 initial distances, overwritten; seed: (B,) device int32
+// first indices, or null for 0; needed: one device int32 step count, or
+// null for m; slots: device scratch of gb_fps_stream_slots(B) int2 (the
+// launch's per-block winners, two parities); out: (B, m) int32.
+extern "C" long long gb_fps_stream_slots(int b) { return 2LL * b * kStreamMaxParts; }
+
+extern "C" int gb_fps_stream(const float* planes, float* dist, const int32_t* seed, const int32_t* needed,
+                             int32_t* out, void* slots, int b, int n, int m, void* stream) {
+  return static_cast<int>(launch_stream(planes, dist, seed, needed, out, static_cast<int2*>(slots), b, n, m,
+                                        static_cast<cudaStream_t>(stream)));
+}
 
 // planes: (B, 3, N) f32; dist0: (B, N) f32 initial distances (1e10, or -1
 // for a point never to be selected); out: (B, m) int32. N <= 65536.

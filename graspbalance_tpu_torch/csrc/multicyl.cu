@@ -9,7 +9,11 @@
 // The first k hits in index order are kept; slots past the hit count repeat
 // the first hit; a seed with no hit gets index 0 everywhere and the rotated
 // coordinates of point 0. No -1 is ever written: the gather after it assumes
-// in-bounds indices. Combos are radius-major: combo = ri * n_h + hi.
+// in-bounds indices. Combos are radius-major: combo = ri * n_h + hi; up
+// to 7 radii and 7 depths (the class encoding's cap in the JAX package,
+// which also refuses thresholds that are not ascending) and at most 28
+// combos, one lane each (the default model has 4 x 4, a num_depth=5 model
+// 4 x 5, the single-scale model 1 x 4).
 //
 // What bounds it on the H100: instruction issue and latency along each
 // seed's serial scan. A seed scans the cloud until all combos hold k hits:
@@ -55,15 +59,17 @@
 
 namespace {
 
-constexpr int kMaxCombos = 16;
+constexpr int kMaxCombos = 28;  // lane c keeps combo c: at most 4 radii x 7 depths (or 7 x 4)
+constexpr int kMaxSide = 7;     // radii or depths: the class encoding's cap (ops/query.py)
+constexpr int kDepthLane = 16;  // the shared word of depth h is lane 16 + h, radius r's lane r
 constexpr int kWarps = 4;  // warps per seed, a block per seed
 static_assert(kWarps <= 4, "a warp's flag is one byte of a 32-bit word");
 
 struct CylParams {
   float r2[kMaxCombos];    // radius^2 of each combo, radius-major
   float hmax[kMaxCombos];  // hmax of each combo
-  float r2_of_radius[kMaxCombos];
-  float hmax_of_depth[kMaxCombos];
+  float r2_of_radius[kMaxSide];
+  float hmax_of_depth[kMaxSide];
   float hmin;
   int n_r, n_h, n_combos;
 };
@@ -100,7 +106,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     multicyl_kernel(const float* __restrict__ planes, const float* __restrict__ centers,
                     const float* __restrict__ rot, int n, int m, int k, const __grid_constant__ CylParams prm,
                     int32_t* __restrict__ idx, float* __restrict__ rel) {
-  // by round parity and warp: lane r < 16 the ballot of radius r, lane 16 + h that of depth h
+  // by round parity and warp: lane r < 7 the ballot of radius r, lane 16 + h that of depth h
   __shared__ uint32_t words[2][kWarps][32];
   __shared__ uint32_t passed[2];  // by round parity: byte w = 1 if warp w's chunk passed the cull
   const int lane = threadIdx.x & 31;
@@ -147,17 +153,17 @@ __global__ void __launch_bounds__(kWarps * 32)
     if (any != 0u) {
       uint32_t word = 0u;
 #pragma unroll
-      for (int r = 0; r < kMaxCombos; ++r) {
+      for (int r = 0; r < kMaxSide; ++r) {
         if (r < prm.n_r) {
           const unsigned v = __ballot_sync(0xffffffffu, cand && d2 < prm.r2_of_radius[r]);
           word = lane == r ? v : word;
         }
       }
 #pragma unroll
-      for (int h = 0; h < kMaxCombos; ++h) {
+      for (int h = 0; h < kMaxSide; ++h) {
         if (h < prm.n_h) {
           const unsigned v = __ballot_sync(0xffffffffu, xr < prm.hmax_of_depth[h]);
-          word = lane == 16 + h ? v : word;
+          word = lane == kDepthLane + h ? v : word;
         }
       }
       words[par][w][lane] = word;
@@ -175,7 +181,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 #pragma unroll
       for (int v = 0; v < kWarps; ++v) {
         if (flags >> (8 * v) & 1u) {
-          const unsigned hits = words[par][v][my_r] & words[par][v][16 + my_h];
+          const unsigned hits = words[par][v][my_r] & words[par][v][kDepthLane + my_h];
           const int nh = __popc(hits);
           earlier += v < w ? nh : 0;
           mine = v == w ? hits : mine;
@@ -243,8 +249,8 @@ __global__ void __launch_bounds__(kWarps * 32)
 extern "C" int gb_multicyl(const float* planes, const float* centers, const float* rot,
                            const float* r2, const float* hmax, float hmin, int n_combos, int n_h,
                            int32_t* idx, float* rel, int b, int n, int m, int k, void* stream) {
-  if (n_combos < 1 || n_combos > kMaxCombos || n_h < 1 || n_combos % n_h != 0 || b < 1 || b > 65535 ||
-      n < 1 || m < 1 || k < 1)
+  if (n_combos < 1 || n_combos > kMaxCombos || n_h < 1 || n_h > kMaxSide || n_combos % n_h != 0 ||
+      n_combos / n_h > kMaxSide || b < 1 || b > 65535 || n < 1 || m < 1 || k < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   CylParams prm{};
   for (int c = 0; c < n_combos; ++c) {

@@ -1,9 +1,11 @@
-"""Model layer: DRP backbone, grasp heads, GraspBalance eval forward, decode,
-and the DSN instance segmentation head."""
+"""Model layer: the DRP and PointNet++ SSG backbones, grasp heads,
+GraspBalance eval and training forward, decode, and the DSN instance
+segmentation head."""
 
+from graspbalance_tpu_torch.models.backbone import Pointnet2Backbone
 from graspbalance_tpu_torch.models.decode import pred_decode
 from graspbalance_tpu_torch.models.drp import DRP
 from graspbalance_tpu_torch.models.dsn import DSN
 from graspbalance_tpu_torch.models.graspbalance import GraspBalance
 
-__all__ = ["DRP", "DSN", "GraspBalance", "pred_decode"]
+__all__ = ["DRP", "DSN", "GraspBalance", "Pointnet2Backbone", "pred_decode"]

@@ -14,48 +14,93 @@ from torch import nn
 
 from graspbalance_tpu_torch import ops
 from graspbalance_tpu_torch.nn.layers import MLPBlock, fused_eval_ok
+from graspbalance_tpu_torch.nn.registry import CHANNEL_MAP
 from graspbalance_tpu_torch.nn.sa_fp import FeaturePropagation, SetAbstraction
 from graspbalance_tpu_torch.ops import mlpmax
 from graspbalance_tpu_torch.ops.fps import furthest_point_sample_plain
+from graspbalance_tpu_torch.ops.knn import knn_plain
+
+
+FEATURE_TYPES = ("dp_fj", "dp_fj_df", "pi_dp_fj_df", "dp_df")
+REDUCTIONS = ("max", "mean", "avg", "sum")
 
 
 class LocalAggregation(nn.Module):
-    """Ball-query neighbourhood aggregation, 'dp_fj' features, max reduction,
-    in the lifted form: the block's linear layer commutes with the gather,
-    ``[p_j - c_i, f_j] @ W == [p_j, f_j] @ W - [c_i, 0] @ W``, so both
-    products run on N rows and one gather moves their difference's terms.
+    """Neighbourhood aggregation: ``grouper`` 'ballquery' (the live model's,
+    at ``query_order``) or 'knn' (``ops.knn``: the kNN kernel at k <= 32);
+    ``feature_type`` 'dp_fj' (the live model's: offsets | neighbour
+    features), 'dp_fj_df', 'pi_dp_fj_df' or 'dp_df' (df = f_j - f_i, pi the
+    center); one conv block with BN + ReLU, then ``reduction`` 'max' (the
+    live model's), 'mean' ('avg') or 'sum' over the neighbours.
 
-    ``fused_min_nsample`` (None: off) turns on the fused eval branch for
-    ``nsample >= fused_min_nsample`` (``nn.layers.fused_eval_ok``): the
-    grouped ``dp | fj`` rows (two gathers, never concatenated) go through the
-    BN-folded block and the max over K in one kernel (ops/mlpmax.py). It
+    'dp_fj' runs in the lifted form: the block's linear layer commutes with
+    the gather, ``[p_j - c_i, f_j] @ W == [p_j, f_j] @ W - [c_i, 0] @ W``,
+    so both products run on N rows and one gather moves their difference's
+    terms. The other feature types run the block on the grouped rows.
+
+    ``fused_min_nsample`` (None: off) turns on the fused eval branch of
+    'dp_fj' for ``nsample >= fused_min_nsample`` (``nn.layers.fused_eval_ok``):
+    the grouped ``dp | fj`` rows (two gathers, never concatenated) go through
+    the BN-folded block and the reduction in one kernel (ops/mlpmax.py). It
     runs the block on N x K rows, where the lifted form runs it on N. In
     bfloat16 (``dtype``) the coordinates are cast to the features' dtype
     where they join them, and the block runs in ``dtype``."""
 
-    def __init__(self, channels: int, radius: float, nsample: int, *, fused_min_nsample: int | None = None,
-                 dtype=torch.float32):
+    def __init__(self, channels: int, radius: float, nsample: int, *, grouper: str = "ballquery",
+                 feature_type: str = "dp_fj", reduction: str = "max", query_order: str = "index",
+                 fused_min_nsample: int | None = None, dtype=torch.float32):
         super().__init__()
+        if grouper not in ("ballquery", "knn"):
+            raise ValueError(f"unknown grouper {grouper}")
+        if feature_type not in FEATURE_TYPES:
+            raise ValueError(f"unknown feature_type {feature_type}")
+        if reduction not in REDUCTIONS:
+            raise ValueError(f"unknown reduction {reduction}")
         self.radius = radius
         self.nsample = nsample
+        self.grouper = grouper
+        self.feature_type = feature_type
+        self.reduction = "mean" if reduction == "avg" else reduction
+        self.query_order = query_order
         self.fused_min_nsample = fused_min_nsample
         self.dtype = dtype
-        self.conv = MLPBlock(3 + channels, channels, dtype=dtype)
+        self.conv = MLPBlock(CHANNEL_MAP[feature_type](channels), channels, dtype=dtype)
+
+    def _reduce(self, out: torch.Tensor) -> torch.Tensor:
+        if self.reduction == "max":
+            return out.amax(dim=2)
+        return out.mean(dim=2) if self.reduction == "mean" else out.sum(dim=2)
 
     def forward(self, xyz: torch.Tensor, feats: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
-        """``plain`` runs the fused branch's kernel as its plain version."""
-        idx = ops.ball_query(xyz, xyz, self.radius, self.nsample)
-        if fused_eval_ok(self, feats):
+        """``plain`` runs the kernels (kNN, the fused branch's) as their
+        plain versions."""
+        if self.grouper == "knn":
+            _, idx = (knn_plain if plain else ops.knn)(xyz, xyz, self.nsample)
+        else:
+            idx = ops.ball_query(xyz, xyz, self.radius, self.nsample, order=self.query_order)
+        if self.feature_type == "dp_fj" and fused_eval_ok(self, feats):
             dp = ops.group_points(xyz, idx) - xyz.unsqueeze(2)
             fj = ops.group_points(feats, idx)
             w0, b0 = self.conv.fold()
             fused = mlpmax.mlp_max_fused_plain if plain else mlpmax.mlp_max_fused
-            return fused((dp, fj), (((w0[:3], w0[3:]), b0),))
-        xyz_f = xyz.to(feats.dtype)
-        e = self.conv(torch.cat([xyz_f, feats], dim=-1), stage="dense")
-        cw = self.conv(torch.cat([xyz_f, torch.zeros_like(feats)], dim=-1), stage="dense")
-        pre = ops.group_points(e, idx) - cw.unsqueeze(2)
-        return self.conv(pre, stage="post").amax(dim=2)
+            return fused((dp, fj), (((w0[:3], w0[3:]), b0),), reduction=self.reduction)
+        if self.feature_type == "dp_fj":
+            xyz_f = xyz.to(feats.dtype)
+            e = self.conv(torch.cat([xyz_f, feats], dim=-1), stage="dense")
+            cw = self.conv(torch.cat([xyz_f, torch.zeros_like(feats)], dim=-1), stage="dense")
+            pre = ops.group_points(e, idx) - cw.unsqueeze(2)
+            return self._reduce(self.conv(pre, stage="post"))
+        fj = ops.group_points(feats, idx)
+        dp = (ops.group_points(xyz, idx) - xyz.unsqueeze(2)).to(fj.dtype)
+        df = fj - feats.unsqueeze(2)
+        if self.feature_type == "dp_fj_df":
+            grouped = torch.cat([dp, fj, df], dim=-1)
+        elif self.feature_type == "pi_dp_fj_df":
+            pi = xyz.unsqueeze(2).to(fj.dtype).expand(dp.shape)
+            grouped = torch.cat([pi, dp, fj, df], dim=-1)
+        else:  # dp_df
+            grouped = torch.cat([dp, df], dim=-1)
+        return self._reduce(self.conv(grouped))
 
 
 EXPANSION = 4  # InvResMLP's pointwise width multiple
@@ -65,11 +110,11 @@ class InvResMLP(nn.Module):
     """LocalAggregation -> [C -> 4C (BN+ReLU) -> C (BN)] -> +residual -> ReLU,
     in ``dtype``."""
 
-    def __init__(self, channels: int, radius: float, nsample: int, *, fused_min_nsample: int | None = None,
-                 dtype=torch.float32):
+    def __init__(self, channels: int, radius: float, nsample: int, *, query_order: str = "index",
+                 fused_min_nsample: int | None = None, dtype=torch.float32):
         super().__init__()
-        self.local_agg = LocalAggregation(channels, radius, nsample, fused_min_nsample=fused_min_nsample,
-                                          dtype=dtype)
+        self.local_agg = LocalAggregation(channels, radius, nsample, query_order=query_order,
+                                          fused_min_nsample=fused_min_nsample, dtype=dtype)
         self.pw1 = MLPBlock(channels, channels * EXPANSION, dtype=dtype)
         self.pw2 = MLPBlock(channels * EXPANSION, channels, act=False, dtype=dtype)
 
@@ -94,14 +139,15 @@ class DRP(nn.Module):
     JAX package's ``fused_eval_ok``: None (the default) keeps it off; 0 fuses
     every set abstraction and local aggregation (``GB_FORCE_FUSED_EVAL``'s
     set), 64 those with K >= 64 (``GB_FUSED_BACKBONE``'s set). It applies in
-    eval mode to float32 only. ``dtype`` is every module's compute dtype."""
+    eval mode to float32 only. ``dtype`` is every module's compute dtype,
+    ``query_order`` every ball query's."""
 
-    def __init__(self, stages=DRP_STAGES, num_seed: int = 1024, *, fused_backbone_min_nsample: int | None = None,
-                 dtype=torch.float32):
+    def __init__(self, stages=DRP_STAGES, num_seed: int = 1024, *, query_order: str = "index",
+                 fused_backbone_min_nsample: int | None = None, dtype=torch.float32):
         super().__init__()
         self.stages = tuple(stages)
         self.num_seed = num_seed
-        kw = dict(fused_min_nsample=fused_backbone_min_nsample, dtype=dtype)
+        kw = dict(query_order=query_order, fused_min_nsample=fused_backbone_min_nsample, dtype=dtype)
         c = 0  # the clouds carry xyz only
         for i, (_, radius, nsample, mlp, n_blocks, b_radius, b_nsample) in enumerate(self.stages):
             self.add_module(f"sa{i + 1}", SetAbstraction(c, radius, nsample, mlp, **kw))

@@ -15,19 +15,25 @@ from torch import nn
 
 from graspbalance_tpu_torch.eval.meanshift import gumbel_noise, mean_shift_cluster, subsampled_count
 from graspbalance_tpu_torch.models.point_transformer import PT_STAGES, PointTransformerSeg
-from graspbalance_tpu_torch.nn.layers import MLPBlock
+from graspbalance_tpu_torch.nn.layers import Dense, MLPBlock
 from graspbalance_tpu_torch.ops.interpolate import interpolate_features
 
 
 class DSN(nn.Module):
-    def __init__(self, pt_stages=PT_STAGES):
+    """``dtype``: the compute dtype of the backbone and the heads (float32,
+    or bfloat16 with the JAX package's casts: float32 parameters, the
+    backbone's output, the heads' outputs and their interpolation in
+    float32)."""
+
+    def __init__(self, pt_stages=PT_STAGES, *, dtype=torch.float32):
         super().__init__()
         self.pt_stages = tuple(pt_stages)
-        self.backbone = PointTransformerSeg(self.pt_stages)
-        self.fg1 = MLPBlock(256, 256)
-        self.fg2 = nn.Linear(256, 2)
-        self.off1 = MLPBlock(256, 256)
-        self.off2 = nn.Linear(256, 3)
+        self.dtype = dtype
+        self.backbone = PointTransformerSeg(self.pt_stages, dtype=dtype)
+        self.fg1 = MLPBlock(256, 256, dtype=dtype)
+        self.fg2 = Dense(256, 2, dtype=dtype)
+        self.off1 = MLPBlock(256, 256, dtype=dtype)
+        self.off2 = Dense(256, 3, dtype=dtype)
 
     @torch.no_grad()
     def forward(self, pointcloud: torch.Tensor, *, sa_inds=None, plain: bool = False) -> dict:
@@ -48,7 +54,7 @@ class DSN(nn.Module):
         fg = self.fg2(self.fg1(feats))
         off = self.off2(self.off1(feats))
         # one shared three_nn + gather for both heads
-        both = interpolate_features(pointcloud[..., :3], bb["seed_xyz"], torch.cat([fg, off], dim=-1))
+        both = interpolate_features(pointcloud[..., :3], bb["seed_xyz"], torch.cat([fg.float(), off.float()], dim=-1))
         return {
             "seed_xyz": bb["seed_xyz"],
             "foreground_logits": both[..., :2],

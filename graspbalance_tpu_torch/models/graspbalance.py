@@ -1,16 +1,20 @@
-"""GraspBalance forward (port of graspbalance_tpu/models/graspbalance.py,
-``backbone='drp'``, ``multi_scale=True``): the eval forward
-(``match_labels=False``) and the training forward (``train=True``).
+"""GraspBalance forward (port of graspbalance_tpu/models/graspbalance.py):
+the eval forward (``match_labels=False``) and the training forward
+(``train=True``), for every model the JAX package builds.
 
-  Stage 1: DRP backbone -> optional OBS re-seeding from a DSN instance
-           clustering (eval) -> GraspableDetection (objectness, view
-           scores, top view and its approach rotation).
+  Stage 1: the backbone (``backbone='drp'``, DRP, or ``'pointnet2'``, the
+           PointNet++ SSG backbone) -> optional OBS re-seeding from a DSN
+           instance clustering (eval) -> GraspableDetection (objectness,
+           view scores, top view and its approach rotation).
   Labels:  (training) label matching on the device, labels/label_gen.py.
-  Stage 2: multi-scale cylinder width grouping -> 1x1 fuse -> gated fusion
-           with the seed features -> grasp parameter and tolerance heads;
-           centred on the seeds with their top-view rotations (eval), or on
-           the matched label grasp points with the label view rotations
-           (training).
+  Stage 2: cylinder width grouping at ``len(scales)`` radii and
+           ``num_depth`` depths; with ``multi_scale=True`` (the default,
+           four scales) a 1x1 fuse and gated fusion with the seed features,
+           with ``multi_scale=False`` the single scale's features as they
+           are (the reference's plain stage 2); then the grasp parameter and
+           tolerance heads over ``num_angle`` angles. Centred on the seeds
+           with their top-view rotations (eval), or on the matched label
+           grasp points with the label view rotations (training).
 
 The end-point keys are those of the JAX forward: input_xyz,
 input_features, sa1_inds, sa{1..4}_{xyz,features}, fp2_{features,xyz,inds},
@@ -27,8 +31,13 @@ from torch import nn
 
 from graspbalance_tpu_torch.eval.obs import object_balance_indices
 from graspbalance_tpu_torch.labels.label_gen import match_grasp_view_and_label, process_grasp_labels
+from graspbalance_tpu_torch.models.backbone import SSG_STAGES, Pointnet2Backbone
 from graspbalance_tpu_torch.models.drp import DRP, DRP_STAGES
 from graspbalance_tpu_torch.models.heads import (
+    CYLINDER_RADIUS,
+    HMAX_LIST,
+    HMIN,
+    NUM_ANGLE,
     SCALES,
     SEED_FEATURES,
     GraspableDetection,
@@ -41,9 +50,16 @@ from graspbalance_tpu_torch.ops.gather import gather_points
 from graspbalance_tpu_torch.ops.interpolate import interpolate_features
 
 
+BACKBONES = {"drp": (DRP, DRP_STAGES), "pointnet2": (Pointnet2Backbone, SSG_STAGES)}
+
+
 class GraspBalance(nn.Module):
-    """The JAX model's fields that the tests vary; the others are constants
-    of the heads (12 angles, 4 depths, cylinder radius 0.08 at 4 scales).
+    """The JAX model's fields, with its defaults: ``num_view``,
+    ``num_angle``, ``num_depth``, ``cylinder_radius``, ``hmin``,
+    ``hmax_list`` (``num_depth`` entries), ``backbone`` ('drp' |
+    'pointnet2'), ``backbone_stages`` (None: the backbone's full table),
+    ``multi_scale``, ``num_seed`` and ``query_order`` ('index' |
+    'nearest', every query of the model).
 
     The fused eval configuration, off by default: ``fused_backbone_min_nsample``
     (see ``DRP``) fuses the backbone's grouping modules, and
@@ -60,22 +76,41 @@ class GraspBalance(nn.Module):
         self,
         *,
         num_view: int = 300,
-        backbone_stages=DRP_STAGES,
+        num_angle: int = NUM_ANGLE,
+        num_depth: int = len(HMAX_LIST),
+        cylinder_radius: float = CYLINDER_RADIUS,
+        hmin: float = HMIN,
+        hmax_list=HMAX_LIST,
+        backbone: str = "drp",
+        backbone_stages=None,
+        multi_scale: bool = True,
         num_seed: int = 1024,
+        query_order: str = "index",
         fused_backbone_min_nsample: int | None = None,
         width_impl: str = "auto",
         dtype=torch.float32,
         width_mlp_dtype=None,
     ):
         super().__init__()
-        self.backbone = DRP(backbone_stages, num_seed=num_seed, fused_backbone_min_nsample=fused_backbone_min_nsample,
-                            dtype=dtype)
+        if backbone not in BACKBONES:
+            raise ValueError(f"backbone must be one of {sorted(BACKBONES)}, got {backbone!r}")
+        if len(hmax_list) != num_depth:
+            raise ValueError(f"hmax_list needs num_depth = {num_depth} entries, got {tuple(hmax_list)}")
+        bb_cls, stages = BACKBONES[backbone]
+        self.multi_scale = multi_scale
+        self.backbone = bb_cls(backbone_stages or stages, num_seed=num_seed, query_order=query_order,
+                               fused_backbone_min_nsample=fused_backbone_min_nsample, dtype=dtype)
         self.graspable = GraspableDetection(num_view, dtype=dtype)
-        self.width_grouping = MultiScaleWidthGrouping(impl=width_impl, dtype=width_mlp_dtype or dtype)
-        self.fuse_multi_scale = Dense(len(SCALES) * 256, 256, dtype=dtype)
-        self.gate_fusion = Dense(SEED_FEATURES, 256, dtype=dtype)
-        self.grasp_params = GraspParametersHead(dtype=dtype)
-        self.tolerance = ToleranceHead(dtype=dtype)
+        self.width_grouping = MultiScaleWidthGrouping(
+            cylinder_radius=cylinder_radius, hmin=hmin, hmax_list=hmax_list,
+            scales=SCALES if multi_scale else (1.0,), query_order=query_order, impl=width_impl,
+            dtype=width_mlp_dtype or dtype,
+        )
+        if multi_scale:
+            self.fuse_multi_scale = Dense(self.width_grouping.out_features, 256, dtype=dtype)
+            self.gate_fusion = Dense(SEED_FEATURES, 256, dtype=dtype)
+        self.grasp_params = GraspParametersHead(num_angle=num_angle, num_depth=num_depth, dtype=dtype)
+        self.tolerance = ToleranceHead(num_angle=num_angle, num_depth=num_depth, dtype=dtype)
 
     @torch.no_grad()
     def forward(
@@ -128,9 +163,12 @@ class GraspBalance(nn.Module):
         """Width grouping at ``centers`` (B, Ns, 3) with rotations ``rot``
         (B, Ns, 3, 3), gated fusion with ep's seed features, the heads."""
         seed_features = ep["fp2_features"]
-        vp = self.width_grouping(centers, ep["input_xyz"], rot, plain=plain)  # (B, Ns, D, 4*256)
-        gate = torch.sigmoid(self.gate_fusion(seed_features))
-        vp_features = self.fuse_multi_scale(vp) + (gate * seed_features.to(gate.dtype)).unsqueeze(2)
+        vp = self.width_grouping(centers, ep["input_xyz"], rot, plain=plain)  # (B, Ns, D, R*256)
+        if self.multi_scale:
+            gate = torch.sigmoid(self.gate_fusion(seed_features))
+            vp_features = self.fuse_multi_scale(vp) + (gate * seed_features.to(gate.dtype)).unsqueeze(2)
+        else:  # the plain single-scale stage 2
+            vp_features = vp
         ep.update(self.grasp_params(vp_features))
         ep.update(self.tolerance(vp_features))
         return ep

@@ -27,6 +27,7 @@ from graspbalance_tpu_torch.labels.geometry import (
 from graspbalance_tpu_torch.nn.layers import Dense, MLPBlock, SharedMLP
 from graspbalance_tpu_torch.ops.gather import group_points
 from graspbalance_tpu_torch.ops.multicyl import multi_cylinder_group, multi_cylinder_group_plain
+from graspbalance_tpu_torch.ops.query import ORDERS, multi_cylinder_query
 from graspbalance_tpu_torch.ops.widthmlp import (
     width_mlp_fused,
     width_mlp_fused_plain,
@@ -35,6 +36,7 @@ from graspbalance_tpu_torch.ops.widthmlp import (
 )
 
 SEED_FEATURES = 256
+# the JAX package's defaults of the heads' fields
 NUM_ANGLE = 12
 CYLINDER_RADIUS = 0.08
 HMIN = -0.02
@@ -71,12 +73,17 @@ class GraspableDetection(nn.Module):
 
 
 class MultiScaleWidthGrouping(nn.Module):
-    """All four cylinder-radius scales of the width-grouping head.
+    """The cylinder-radius scales of the width-grouping head: radius
+    ``s * cylinder_radius`` for each s of ``scales`` (four in the default
+    model, one in the single-scale model), a depth ``hmin < x' < hmax`` for
+    each of ``hmax_list``.
 
     ``impl='auto'`` (the default):
 
-    1. one multi-cylinder query computes the 4 radii x 4 depths neighbour
-       indices (ops/multicyl.py);
+    1. one multi-cylinder query computes the radii x depths neighbour
+       indices (ops/multicyl.py; ``query_order='nearest'`` runs the plain
+       nearest-order query, ops/query.py, which the JAX package also runs
+       without a kernel);
     2. eval mode: a seed-major gather of the raw neighbour coordinates,
        then each scale's BN-folded MLP 3 -> 64 -> 128 -> 256 with the
        rotation and center folded into layer 0 and the max over K
@@ -90,7 +97,9 @@ class MultiScaleWidthGrouping(nn.Module):
     emits every neighbour's gripper-frame coordinates (no gradient flows
     through them); in eval mode each scale's BN-folded MLP and the max over
     K run on them (ops/widthmlp.py:width_mlp_fused), in train mode each
-    scale's SharedMLP and the max.
+    scale's SharedMLP and the max. Its query is index-order only: the JAX
+    package's fused query ignores ``query_order``, so the port refuses
+    ``'nearest'`` with it.
 
     The fused MLPs are float32: with ``dtype`` bfloat16 the eval mode takes
     the train mode's path (the gripper-frame coordinates in float32, cast
@@ -100,18 +109,39 @@ class MultiScaleWidthGrouping(nn.Module):
 
     IMPLS = ("auto", "fused_pallas")
 
-    def __init__(self, *, nsample: int = 64, mlp: Sequence[int] = (64, 128, 256), impl: str = "auto",
-                 dtype=torch.float32):
+    def __init__(
+        self,
+        *,
+        nsample: int = 64,
+        cylinder_radius: float = CYLINDER_RADIUS,
+        hmin: float = HMIN,
+        hmax_list: Sequence[float] = HMAX_LIST,
+        scales: Sequence[float] = SCALES,
+        mlp: Sequence[int] = (64, 128, 256),
+        query_order: str = "index",
+        impl: str = "auto",
+        dtype=torch.float32,
+    ):
         super().__init__()
         if impl not in self.IMPLS:
             raise ValueError(f"impl must be one of {self.IMPLS}, got {impl!r}")
+        if query_order not in ORDERS:
+            raise ValueError(f"query_order must be one of {ORDERS}, got {query_order!r}")
+        if impl == "fused_pallas" and query_order != "index":
+            raise ValueError(
+                "width_impl='fused_pallas' with query_order='nearest': the fused cylinder query keeps the "
+                "first k by index; the JAX package's fused query ignores query_order there (a fault of the "
+                "reference, ROADMAP), so the port refuses the combination"
+            )
         self.impl = impl
         self.nsample = nsample
+        self.query_order = query_order
         self.dtype = dtype
-        self.radii = tuple(s * CYLINDER_RADIUS for s in SCALES)
-        self.hmin = HMIN
-        self.hmax_list = HMAX_LIST
-        for ri in range(len(SCALES)):
+        self.radii = tuple(s * cylinder_radius for s in scales)
+        self.hmin = hmin
+        self.hmax_list = tuple(hmax_list)
+        self.out_features = len(self.radii) * mlp[-1]
+        for ri in range(len(self.radii)):
             self.add_module(f"mlp_scale{ri}", SharedMLP(3, mlp, dtype=dtype))
 
     @torch.no_grad()
@@ -128,7 +158,11 @@ class MultiScaleWidthGrouping(nn.Module):
 
     def forward(self, seed_xyz, cloud_xyz, vp_rot, *, plain: bool = False) -> torch.Tensor:
         cloud_xyz, seed_xyz, vp_rot = (t.contiguous() for t in (cloud_xyz, seed_xyz, vp_rot))
-        query = multi_cylinder_group_plain if plain else multi_cylinder_group
+        if self.query_order != "index":
+            def query(cloud, seeds, rot, *args):
+                return multi_cylinder_query(cloud, seeds, rot, *args, order=self.query_order), None
+        else:
+            query = multi_cylinder_group_plain if plain else multi_cylinder_group
         unfused = self.training or self.dtype != torch.float32
         if self.impl == "fused_pallas":
             _, rel = query(
@@ -152,18 +186,21 @@ class MultiScaleWidthGrouping(nn.Module):
 
 
 class GraspParametersHead(nn.Module):
-    """Score / angle-class / width head: (B, Ns, D, 256) -> dict of (B, Ns, A, D)."""
+    """Score / angle-class / width head: (B, Ns, D, 256) -> dict of
+    (B, Ns, A, D), A = ``num_angle``; D is the input's (one per depth of the
+    width head, ``num_depth`` in the model)."""
 
-    def __init__(self, *, dtype=torch.float32):
+    def __init__(self, *, num_angle: int = NUM_ANGLE, num_depth: int = len(HMAX_LIST), dtype=torch.float32):
         super().__init__()
+        self.num_angle, self.num_depth = num_angle, num_depth
         self.conv1 = MLPBlock(256, 128, dtype=dtype)
         self.conv2 = MLPBlock(128, 128, dtype=dtype)
-        self.conv3 = Dense(128, 3 * NUM_ANGLE, dtype=dtype)
+        self.conv3 = Dense(128, 3 * num_angle, dtype=dtype)
 
     def forward(self, vp_features: torch.Tensor) -> dict:
         x = self.conv3(self.conv2(self.conv1(vp_features)))
         b, ns, d, _ = x.shape
-        x = x.reshape(b, ns, d, 3, NUM_ANGLE).float().movedim(2, -1)  # (B, Ns, 3, A, D)
+        x = x.reshape(b, ns, d, 3, self.num_angle).float().movedim(2, -1)  # (B, Ns, 3, A, D)
         return {
             "grasp_score_pred": x[:, :, 0],
             "grasp_angle_cls_pred": x[:, :, 1],
@@ -174,11 +211,12 @@ class GraspParametersHead(nn.Module):
 class ToleranceHead(nn.Module):
     """Per-angle tolerance head: (B, Ns, D, 256) -> (B, Ns, A, D)."""
 
-    def __init__(self, *, dtype=torch.float32):
+    def __init__(self, *, num_angle: int = NUM_ANGLE, num_depth: int = len(HMAX_LIST), dtype=torch.float32):
         super().__init__()
+        self.num_angle, self.num_depth = num_angle, num_depth
         self.conv1 = MLPBlock(256, 128, dtype=dtype)
         self.conv2 = MLPBlock(128, 128, dtype=dtype)
-        self.conv3 = Dense(128, NUM_ANGLE, dtype=dtype)
+        self.conv3 = Dense(128, num_angle, dtype=dtype)
 
     def forward(self, vp_features: torch.Tensor) -> dict:
         x = self.conv3(self.conv2(self.conv1(vp_features)))

@@ -9,6 +9,13 @@ The k = 16 neighbour search is ``ops.knn.knn``: the CUDA kernel on CUDA
 tensors (its plain version with ``plain=True``, or on CPU tensors). Modules
 carry the flax names (embed, down{i}, block{i}_{j}, proj; ln1, attn, ln2,
 mlp1, mlp2; q, k, v, pos1, pos2, attn1, attn2).
+
+``dtype`` is every module's compute dtype (float32, or bfloat16 with the
+JAX package's casts): parameters stay float32 and are cast at each product,
+a LayerNorm computes its statistics in float32 and rounds its output to
+``dtype``, the coordinates stay float32 (the ball query, the kNN and the
+offsets, cast where they join the features) and the backbone's output is
+float32.
 """
 
 from __future__ import annotations
@@ -17,22 +24,47 @@ import torch
 from torch import nn
 
 from graspbalance_tpu_torch import ops
-from graspbalance_tpu_torch.nn.layers import MLPBlock
+from graspbalance_tpu_torch.nn.layers import Dense, MLPBlock
+from graspbalance_tpu_torch.nn.registry import flax_norm
 from graspbalance_tpu_torch.ops.fps import furthest_point_sample_plain
 from graspbalance_tpu_torch.ops.knn import knn, knn_plain
 
 LN_EPS = 1e-6  # flax LayerNorm's default
 
 
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` in float32; in bfloat16 (``dtype``) flax's: the
+    statistics and the normalisation in float32 on the input read as
+    float32, the output rounded to bfloat16."""
+
+    def __init__(self, features: int, eps: float = LN_EPS, *, dtype=torch.float32):
+        super().__init__(features, eps=eps)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype == torch.float32:
+            return super().forward(x)
+        return flax_norm(x, self.weight, self.bias, self.eps, (-1,), out_dtype=self.dtype)
+
+
+def softmax(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``jax.nn.softmax``'s steps in x's dtype: exp(x - max), divided by
+    its sum (accumulated in float32, rounded once)."""
+    if x.dtype == torch.float32:
+        return torch.softmax(x, dim=dim)
+    e = torch.exp(x - x.amax(dim=dim, keepdim=True))
+    return e / e.sum(dim=dim, keepdim=True)
+
+
 class VectorAttention(nn.Module):
     """Local vector self-attention over the k nearest neighbours."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, *, dtype=torch.float32):
         super().__init__()
         c = channels
-        self.q, self.k, self.v = nn.Linear(c, c), nn.Linear(c, c), nn.Linear(c, c)
-        self.pos1, self.pos2 = nn.Linear(3, c), nn.Linear(c, c)
-        self.attn1, self.attn2 = nn.Linear(c, c), nn.Linear(c, c)
+        self.q, self.k, self.v = (Dense(c, c, dtype=dtype) for _ in range(3))
+        self.pos1, self.pos2 = Dense(3, c, dtype=dtype), Dense(c, c, dtype=dtype)
+        self.attn1, self.attn2 = Dense(c, c, dtype=dtype), Dense(c, c, dtype=dtype)
 
     def forward(self, xyz: torch.Tensor, feats: torch.Tensor, knn_idx: torch.Tensor) -> torch.Tensor:
         """xyz (B, N, 3), feats (B, N, C), knn_idx (B, N, K) -> (B, N, C)."""
@@ -42,20 +74,20 @@ class VectorAttention(nn.Module):
         rel = ops.group_points(xyz, knn_idx) - xyz.unsqueeze(2)  # (B, N, K, 3)
         pos = self.pos2(torch.relu(self.pos1(rel)))
         w = self.attn2(torch.relu(self.attn1(q.unsqueeze(2) - kg + pos)))
-        w = torch.softmax(w, dim=2)
+        w = softmax(w, dim=2)
         return torch.sum(w * (vg + pos), dim=2)
 
 
 class PTBlock(nn.Module):
     """Pre-norm residual vector-attention block + pointwise MLP."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, *, dtype=torch.float32):
         super().__init__()
-        self.ln1 = nn.LayerNorm(channels, eps=LN_EPS)
-        self.attn = VectorAttention(channels)
-        self.ln2 = nn.LayerNorm(channels, eps=LN_EPS)
-        self.mlp1 = nn.Linear(channels, channels * 2)
-        self.mlp2 = nn.Linear(channels * 2, channels)
+        self.ln1 = LayerNorm(channels, dtype=dtype)
+        self.attn = VectorAttention(channels, dtype=dtype)
+        self.ln2 = LayerNorm(channels, dtype=dtype)
+        self.mlp1 = Dense(channels, channels * 2, dtype=dtype)
+        self.mlp2 = Dense(channels * 2, channels, dtype=dtype)
 
     def forward(self, xyz, feats, knn_idx):
         feats = feats + self.attn(xyz, self.ln1(feats), knn_idx)
@@ -72,18 +104,18 @@ PT_STAGES = (
 class PointTransformerSeg(nn.Module):
     """(B, N, 3) -> dict(seed_xyz (B, S, 3), seed_features (B, S, out))."""
 
-    def __init__(self, stages=PT_STAGES, out_channels: int = 256, knn: int = 16):
+    def __init__(self, stages=PT_STAGES, out_channels: int = 256, knn: int = 16, *, dtype=torch.float32):
         super().__init__()
         self.stages = tuple(stages)
         self.knn = knn
         c = self.stages[0][3]
-        self.embed = MLPBlock(3, c)
+        self.embed = MLPBlock(3, c, dtype=dtype)
         for i, (_, _, _, channels, n_blocks) in enumerate(self.stages):
-            self.add_module(f"down{i}", MLPBlock(3 + c, channels))
+            self.add_module(f"down{i}", MLPBlock(3 + c, channels, dtype=dtype))
             c = channels
             for j in range(n_blocks):
-                self.add_module(f"block{i}_{j}", PTBlock(channels))
-        self.proj = nn.Linear(c, out_channels)
+                self.add_module(f"block{i}_{j}", PTBlock(channels, dtype=dtype))
+        self.proj = Dense(c, out_channels, dtype=dtype)
 
     def forward(self, pointcloud: torch.Tensor, *, sa_inds=None, plain: bool = False) -> dict:
         """pointcloud (B, N, 3); sa_inds optional (B, npoint_0) FPS indices.
@@ -102,7 +134,8 @@ class PointTransformerSeg(nn.Module):
             new_xyz = ops.gather_points(xyz, inds)
             idx = ops.ball_query(xyz, new_xyz, radius, nsample)
             grouped_xyz = (ops.group_points(xyz, idx) - new_xyz.unsqueeze(2)) / radius
-            grouped = torch.cat([grouped_xyz, ops.group_points(feats, idx)], dim=-1)
+            grouped_feats = ops.group_points(feats, idx)
+            grouped = torch.cat([grouped_xyz.to(grouped_feats.dtype), grouped_feats], dim=-1)
             feats = getattr(self, f"down{i}")(grouped).amax(dim=2)
             xyz = new_xyz.contiguous()
             # one kNN per stage: every block at this resolution shares it
@@ -110,4 +143,4 @@ class PointTransformerSeg(nn.Module):
                 _, knn_idx = knn_fn(xyz, xyz, self.knn)
             for j in range(n_blocks):
                 feats = getattr(self, f"block{i}_{j}")(xyz, feats, knn_idx)
-        return {"seed_xyz": xyz, "seed_features": self.proj(feats)}
+        return {"seed_xyz": xyz, "seed_features": self.proj(feats).float()}

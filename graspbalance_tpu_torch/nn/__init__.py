@@ -2,6 +2,17 @@
 over the trailing feature axis."""
 
 from graspbalance_tpu_torch.nn.layers import BatchNorm, MLPBlock, SharedMLP
-from graspbalance_tpu_torch.nn.sa_fp import FeaturePropagation, SetAbstraction
+from graspbalance_tpu_torch.nn.registry import create_act, create_norm
+from graspbalance_tpu_torch.nn.sa_fp import (
+    FeaturePropagation,
+    LocalFeaturePropagationMSG,
+    SetAbstraction,
+    SetAbstractionMSG,
+    SetAbstractionShift,
+    SetAbstractionWOMLP,
+)
 
-__all__ = ["BatchNorm", "MLPBlock", "SharedMLP", "SetAbstraction", "FeaturePropagation"]
+__all__ = [
+    "BatchNorm", "MLPBlock", "SharedMLP", "SetAbstraction", "SetAbstractionMSG", "SetAbstractionShift",
+    "SetAbstractionWOMLP", "LocalFeaturePropagationMSG", "FeaturePropagation", "create_act", "create_norm",
+]

@@ -113,7 +113,8 @@ def fused_eval_ok(module: nn.Module, x: torch.Tensor) -> bool:
 class Dense(nn.Linear):
     """``nn.Linear`` computing in ``dtype``: its float32 parameters and its
     input are cast to ``dtype`` at each call (flax ``nn.Dense(dtype,
-    param_dtype=float32)``); the output is in ``dtype``."""
+    param_dtype=float32)``); the output is in ``dtype``. In bfloat16 the
+    product is rounded before the bias is added, as flax adds it."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True, *, dtype=torch.float32):
         super().__init__(in_features, out_features, bias=bias)
@@ -123,36 +124,85 @@ class Dense(nn.Linear):
         d = self.dtype
         if d == torch.float32:
             return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
-        bias = None if self.bias is None else self.bias.to(d)
-        return F.linear(x.to(d), self.weight.to(d), bias)
+        y = F.linear(x.to(d), self.weight.to(d))
+        return y if self.bias is None else y + self.bias.to(d)
+
+
+ORDERS = ("conv-norm-act", "norm-act-conv", "conv-act-norm")
 
 
 class MLPBlock(nn.Module):
-    """Linear + BN + optional ReLU ('conv-norm-act' order) in ``dtype``. The
-    linear layer has no bias: BN follows it, as in the reference."""
+    """Linear + norm + activation in ``dtype``, in ``order``
+    ('conv-norm-act', the default; 'norm-act-conv', whose norm takes the
+    input's channels; 'conv-act-norm'). The linear layer has a bias only
+    without a norm (``use_bn=False``), as in the reference. ``norm_type`` is
+    any ``nn.registry.create_norm`` key (default 'bn', this module's
+    BatchNorm in ``dtype``), ``act_type`` any ``create_act`` key (default
+    'relu'); ``act=False`` drops the activation. The norm is named ``bn``
+    whatever its kind, and a PReLU ``PReLU_0``, as in the flax tree."""
 
-    def __init__(self, in_features: int, features: int, *, act: bool = True, dtype=torch.float32):
+    def __init__(self, in_features: int, features: int, *, act: bool = True, use_bn: bool = True,
+                 norm_type: str = "bn", act_type: str = "relu", order: str = "conv-norm-act", dtype=torch.float32):
         super().__init__()
-        self.dense = Dense(in_features, features, bias=False, dtype=dtype)
-        self.bn = BatchNorm(features, dtype=dtype)
+        if order not in ORDERS:
+            raise NotImplementedError(f"{order} is not supported")
+        self.order = order
         self.act = act
+        self.use_bn = use_bn
+        self.dense = Dense(in_features, features, bias=not use_bn, dtype=dtype)
+        if use_bn:
+            norm_features = in_features if order == "norm-act-conv" else features
+            if norm_type == "bn":
+                self.bn = BatchNorm(norm_features, dtype=dtype)
+            else:
+                from graspbalance_tpu_torch.nn.registry import create_norm
+
+                self.bn = create_norm(norm_type, norm_features)
+        self.act_fn = torch.relu
+        if act and act_type != "relu":
+            from graspbalance_tpu_torch.nn.registry import create_act
+
+            fn = create_act(act_type)
+            if isinstance(fn, nn.Module):  # a PReLU: a submodule with its slopes
+                self.add_module("PReLU_0", fn)
+                fn = None
+            self.act_fn = fn
+
+    def _act(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.act:
+            return x
+        return self.PReLU_0(x) if self.act_fn is None else self.act_fn(x)
+
+    def _post(self, x: torch.Tensor) -> torch.Tensor:
+        """Norm and activation in the block's order (the linear layer done)."""
+        if self.order == "conv-act-norm":
+            x = self._act(x)
+            return self.bn(x) if self.use_bn else x
+        x = self.bn(x) if self.use_bn else x
+        return self._act(x)
 
     def forward(self, x: torch.Tensor, *, stage: str | None = None) -> torch.Tensor:
         """stage=None: the full block; 'dense': only the linear layer;
-        'post': only BN + ReLU on a precomputed pre-activation. The split
-        lets a caller commute the linear layer with a gather."""
+        'post': only the norm + activation on a precomputed pre-activation.
+        The split lets a caller commute the linear layer with a gather; it
+        needs the 'conv-norm-act' order."""
         if stage not in (None, "dense", "post"):
             raise ValueError(f"unknown stage {stage}")
+        if stage is not None and self.order != "conv-norm-act":
+            raise ValueError("staged call requires order='conv-norm-act'")
+        if self.order == "norm-act-conv":
+            return self.dense(self._post(x))
         if stage != "post":
             x = self.dense(x)
             if stage == "dense":
                 return x
-        x = self.bn(x)
-        return torch.relu(x) if self.act else x
+        return self._post(x)
 
     @torch.no_grad()
     def fold(self) -> tuple[torch.Tensor, torch.Tensor]:
         """The block with its BN folded in (eval only): (W_eff (I, O), b_eff)."""
+        if not isinstance(getattr(self, "bn", None), BatchNorm) or self.order != "conv-norm-act":
+            raise ValueError("only a 'conv-norm-act' block with BatchNorm folds")
         return self.bn.fold(self.dense.weight)
 
 

@@ -1,4 +1,5 @@
-"""The grasp head's 16 cylinder queries in one pass, with the neighbours'
+"""The grasp head's cylinder queries (4 radii x 4 depths in the default
+model, up to 28 combos of at most 7 radii and 7 depths) in one pass, with the neighbours'
 gripper-frame coordinates on request (port of
 graspbalance_tpu/ops/pallas/multicyl_kernel.py).
 
@@ -21,12 +22,13 @@ import torch
 
 from graspbalance_tpu_torch import _build
 from graspbalance_tpu_torch.ops.query import (
+    check_ascending,
     cylinder_thresholds,
     multi_cylinder_query,
     rot_planes,
 )
 
-MAX_COMBOS = 16  # radii x depths the kernel keeps counts for
+MAX_COMBOS = 28  # radii x depths the kernel keeps counts for, a lane each
 
 
 def _check(cloud, centers, rot):
@@ -82,6 +84,7 @@ def multi_cylinder_group(
     """All len(radii) x len(hmaxs) cylinder queries (+ optional rotated
     grouping). See the module docstring for the outputs."""
     _check(cloud, centers, rot)
+    check_ascending(radii, hmaxs)
     if cloud.device.type == "cpu":
         return multi_cylinder_group_plain(
             cloud, centers, rot, radii, hmin, hmaxs, nsample, emit_rel=emit_rel

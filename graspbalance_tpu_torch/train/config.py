@@ -7,8 +7,10 @@ Left out are the JAX package's four trace-time knobs of its TPU compiler
 ``query_extract_group``) and their ``GB_*`` environment overrides: nothing
 on the card corresponds to them. ``config_from_dict`` ignores them, as it
 ignores every unknown key, so a ``config.json`` written by the JAX package
-loads here. ``train_step.build_model`` refuses every value the port cannot
-honour yet, naming the ROADMAP item that adds it.
+loads here. ``train_step.check_supported`` refuses what the port cannot
+honour: ``n_data_shards`` > 1 (ROADMAP Queue 1 item 7), ``query_order``
+``'nearest_approx'`` (left behind: the TPU's approximate top-k) and
+``label_impl='reduced'``, and the values the JAX package itself rejects.
 """
 
 from __future__ import annotations
@@ -25,10 +27,10 @@ class ModelConfig:
     cylinder_radius: float = 0.08
     hmin: float = -0.02
     hmax_list: Sequence[float] = (0.01, 0.02, 0.03, 0.04)
-    backbone: str = "drp"  # 'drp' ('pointnet2' is refused, ROADMAP Queue 1 item 7)
-    backbone_stages: tuple | None = None  # None = the full DRP stage table
+    backbone: str = "drp"  # 'drp' | 'pointnet2'
+    backbone_stages: tuple | None = None  # None = the backbone's full stage table
     num_seed: int = 1024
-    query_order: str = "index"  # 'index' ('nearest' is refused, item 7)
+    query_order: str = "index"  # 'index' (reference parity) | 'nearest'
     dtype: str = "float32"  # compute dtype: 'float32' | 'bfloat16' (parameters stay float32)
     # the width head's compute dtype (None = follow `dtype`)
     width_mlp_dtype: str | None = None

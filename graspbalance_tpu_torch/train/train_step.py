@@ -30,32 +30,30 @@ import torch
 from graspbalance_tpu_torch.eval.pipeline import resolve_device
 from graspbalance_tpu_torch.labels.analytic import expand_batch_labels
 from graspbalance_tpu_torch.labels.losses import get_loss
-from graspbalance_tpu_torch.models.drp import DRP_STAGES
-from graspbalance_tpu_torch.models.graspbalance import GraspBalance
-from graspbalance_tpu_torch.models.heads import CYLINDER_RADIUS, HMAX_LIST, HMIN, NUM_ANGLE
+from graspbalance_tpu_torch.models.graspbalance import BACKBONES, GraspBalance
+from graspbalance_tpu_torch.ops.query import ORDERS
 from graspbalance_tpu_torch.nn.layers import DTYPES, BatchNorm, bn_momentum_schedule, compute_dtype, init_flax_defaults_
 from graspbalance_tpu_torch.train.config import Config
 
 
 def check_supported(cfg: Config) -> None:
-    """Raise ValueError on every value of ``cfg`` the port cannot honour
-    yet, naming the ROADMAP item (Queue 1) that adds it, or for
-    ``label_impl='reduced'`` the measurement that left it out."""
+    """Raise ValueError on every value of ``cfg`` the port cannot honour:
+    ``n_data_shards`` > 1 (data parallelism, ROADMAP Queue 1 item 7),
+    ``query_order='nearest_approx'`` (the TPU's approximate top-k, left
+    behind), ``label_impl='reduced'`` (the measurement that left it out),
+    and the values the JAX package itself rejects: an unknown backbone,
+    query order or compute dtype, and an ``hmax_list`` without
+    ``num_depth`` entries."""
     m = cfg.model
-    heads = {"num_angle": NUM_ANGLE, "num_depth": len(HMAX_LIST), "cylinder_radius": CYLINDER_RADIUS,
-             "hmin": HMIN, "hmax_list": HMAX_LIST}
-    refused = [(f"backbone={m.backbone!r}", 7)] if m.backbone != "drp" else []
-    if m.query_order != "index":
-        refused.append((f"query_order={m.query_order!r}", 7))
-    for name, value in heads.items():
-        got = getattr(m, name)
-        if (tuple(got) if name == "hmax_list" else got) != value:
-            refused.append((f"{name}={got!r} (the heads' constant is {value!r})", 7))
     if cfg.train.n_data_shards not in (None, 1):
-        refused.append((f"n_data_shards={cfg.train.n_data_shards!r}", 7))
-    if refused:
-        raise ValueError("the port cannot honour " + "; ".join(
-            f"{what}: ROADMAP Queue 1 item {item}" for what, item in refused))
+        raise ValueError(f"the port cannot honour n_data_shards={cfg.train.n_data_shards!r}: ROADMAP Queue 1 item 7")
+    if m.backbone not in BACKBONES:
+        raise ValueError(f"backbone={m.backbone!r}: one of {sorted(BACKBONES)}")
+    if m.query_order not in ORDERS:
+        raise ValueError(f"query_order={m.query_order!r}: one of {ORDERS} ('nearest_approx' targets the TPU's "
+                         "approximate top-k unit and is not ported, ROADMAP 'Leave behind')")
+    if len(m.hmax_list) != m.num_depth:
+        raise ValueError(f"hmax_list={tuple(m.hmax_list)!r} needs num_depth={m.num_depth} entries")
     for name in ("dtype", "width_mlp_dtype"):
         value = getattr(m, name)
         if value not in DTYPES and not (name == "width_mlp_dtype" and value is None):
@@ -72,12 +70,15 @@ def build_model(cfg: Config = Config(), *, device="cuda") -> GraspBalance:
     """The model of ``cfg`` on ``device`` (a CUDA device by default, which
     must exist; ``device="cpu"`` runs every kernel's plain version), with
     torch's default initialisation: ``create_train_state`` initialises it
-    as the JAX package does. Raises on settings the port cannot honour
+    as the JAX package does. Every field of ``cfg.model`` is passed
+    through; raises on settings the port cannot honour
     (``check_supported``)."""
     check_supported(cfg)
     m = cfg.model
     model = GraspBalance(
-        num_view=m.num_view, backbone_stages=m.backbone_stages or DRP_STAGES, num_seed=m.num_seed,
+        num_view=m.num_view, num_angle=m.num_angle, num_depth=m.num_depth, cylinder_radius=m.cylinder_radius,
+        hmin=m.hmin, hmax_list=tuple(m.hmax_list), backbone=m.backbone, backbone_stages=m.backbone_stages,
+        num_seed=m.num_seed, query_order=m.query_order,
         dtype=compute_dtype(m.dtype), width_mlp_dtype=compute_dtype(m.width_mlp_dtype),
     )
     return model.to(resolve_device(device))

@@ -8,6 +8,8 @@ key is the flax path joined with dots and a renamed leaf:
   params      .../kernel (I, O)  ->  .../weight (O, I)   (torch Linear layout)
   params      .../bias           ->  .../bias
   params      .../bn/scale       ->  .../bn/weight
+  params      .../ln|gn|in/scale ->  .../ln|gn|in/weight   (the registry's norms)
+  params      .../PReLU_0/alpha  ->  .../PReLU_0/alpha
   batch_stats .../bn/mean        ->  .../bn/running_mean
   batch_stats .../bn/var         ->  .../bn/running_var
 
@@ -22,7 +24,7 @@ import torch
 from torch import nn
 
 _LEAVES = {
-    "params": {"kernel": "weight", "bias": "bias", "scale": "weight"},
+    "params": {"kernel": "weight", "bias": "bias", "scale": "weight", "alpha": "alpha"},
     "batch_stats": {"mean": "running_mean", "var": "running_var"},
 }
 

@@ -11,9 +11,10 @@ Tolerances:
     in float64), at and past its last step;
   - the CLI: the same argv gives the same config on the shared fields and
     the same first batch, exactly, as the JAX CLI (with --dataset_root, the
-    same config and the loaders' streams); the flags the port cannot honour
-    yet raise, naming their ROADMAP item; the bfloat16 compute dtypes are
-    accepted, built, and recorded in config.json.
+    same config and the loaders' streams); the model fields the port once
+    refused (ROADMAP Queue 1 item 7) build and run; n_data_shards > 1 is
+    refused, naming the item; the bfloat16 compute dtypes are accepted,
+    built, and recorded in config.json.
 """
 
 import dataclasses
@@ -34,6 +35,7 @@ from graspbalance_tpu.train.config import TrainConfig as JTrainConfig
 from graspbalance_tpu.train.config import config_to_dict as j_config_to_dict
 import graspbalance_tpu_torch.cli.train as cli
 import graspbalance_tpu_torch.train.loop as loop
+from graspbalance_tpu_torch.data.synthetic import make_batch
 from graspbalance_tpu_torch.train.checkpoints import CheckpointManager, load_config
 from graspbalance_tpu_torch.train.config import (
     Config,
@@ -44,7 +46,7 @@ from graspbalance_tpu_torch.train.config import (
     config_to_dict,
 )
 from graspbalance_tpu_torch.train.train_step import build_model, make_optimizer
-from test_torch_train import CFG, JCFG, STAGES
+from test_torch_train import CFG, JCFG, SCENE, STAGES
 from torch_threads import one_thread  # noqa: F401  (torch on one thread in this module)
 
 TPU_KNOBS = {"gather_vjp", "query_batch_chunk", "count_matmul", "query_extract_group"}
@@ -101,14 +103,26 @@ def test_port_config_json_loads_in_jax(tmp_path):
     assert got.model.count_matmul is False  # the knobs the port leaves out keep their defaults
 
 
+# the JAX package's model fields that the port refused until ROADMAP Queue 1
+# item 7 landed; each case now builds its model, and a field that needs a
+# partner takes the JAX package's (num_depth and hmax_list go together; the
+# pointnet2 backbone takes an SSG stage table)
 @pytest.mark.parametrize("field, value, item", [
     ("backbone", "pointnet2", 7), ("query_order", "nearest", 7), ("num_angle", 6, 7), ("num_depth", 3, 7),
     ("cylinder_radius", 0.05, 7), ("hmin", -0.01, 7), ("hmax_list", (0.01, 0.02), 7),
 ])
 def test_build_model_refuses_what_it_cannot_honour(field, value, item):
-    cfg = dataclasses.replace(CFG, model=dataclasses.replace(CFG.model, **{field: value}))
-    with pytest.raises(ValueError, match=rf"{field}=.*item {item}"):
-        build_model(cfg, device="cpu")
+    """Once refused (item ``item``), now accepted: the model builds with the
+    value and runs a tiny eval forward whose outputs have its shapes."""
+    partner = {"num_depth": {"hmax_list": (0.01, 0.02, 0.03)}, "hmax_list": {"num_depth": 2},
+               "backbone": {"backbone_stages": tuple(s[:4] for s in STAGES)}}.get(field, {})
+    cfg = dataclasses.replace(CFG, model=dataclasses.replace(CFG.model, **{field: value}, **partner))
+    model = build_model(cfg, device="cpu").eval()
+    assert getattr(cfg.model, field) == value
+    ep = model(torch.from_numpy(make_batch(0, 1, SCENE)["point_clouds"]))
+    m = cfg.model
+    assert ep["grasp_score_pred"].shape == (1, STAGES[1][0], m.num_angle, m.num_depth)
+    assert torch.isfinite(ep["grasp_tolerance_pred"]).all()
 
 
 @pytest.mark.parametrize("field", ["dtype", "width_mlp_dtype"])
@@ -137,9 +151,8 @@ def test_build_model_refuses_reduced_labels():
 def test_train_refuses_before_writing(tmp_path):
     """A config the port cannot honour is refused before the loop writes
     its config.json or anything else into the log_dir."""
-    cfg = dataclasses.replace(CFG, model=dataclasses.replace(CFG.model, backbone="pointnet2"),
-                              train=TrainConfig(log_dir=str(tmp_path / "run")))
-    with pytest.raises(ValueError, match="backbone='pointnet2'.*item 7"):
+    cfg = dataclasses.replace(CFG, train=TrainConfig(log_dir=str(tmp_path / "run"), n_data_shards=2))
+    with pytest.raises(ValueError, match="n_data_shards=2.*item 7"):
         loop.train(cfg, lambda epoch: iter([{}]), steps_per_epoch=1, device="cpu")
     assert not (tmp_path / "run").exists()
 
@@ -200,12 +213,16 @@ def test_cli_maps_argv_as_jax(argv, monkeypatch):
         assert next(iter(a[0](0)))["grasp_labels"] is first["grasp_labels"]
 
 
+# the CLI's flags take the JAX CLI's values (``--backbone pointnet2`` is
+# accepted: tests/test_torch_pointnet2.py); a value outside its choices is
+# refused by the parser, as the JAX CLI's refuses it
 @pytest.mark.parametrize("argv, match", [
-    (["--backbone", "pointnet2"], "item 7"),
+    (["--backbone", "pointnet3"], "invalid choice"),
 ])
-def test_cli_refuses(argv, match):
-    with pytest.raises(ValueError, match=match):
+def test_cli_refuses(argv, match, capsys):
+    with pytest.raises(SystemExit):
         cli.main(argv + ["--device", "cpu"])
+    assert match in capsys.readouterr().err
 
 
 def test_cli_maps_dataset_root_as_jax(tmp_path, monkeypatch):

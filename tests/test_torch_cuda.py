@@ -151,14 +151,54 @@ def test_fps_kernel_ties_and_origin(dev, rng, m):
 
 
 def test_fps_kernel_refuses_what_it_cannot_take(dev):
+    """Only a wrong dtype or an empty cloud is refused: past the register
+    routes' 65,536 and 32,768 points the streaming mode takes any N."""
     with pytest.raises(ValueError, match="float32"):
         furthest_point_sample(torch.zeros((1, 10, 3), dtype=torch.float64, device=dev), 4)
     with pytest.raises(ValueError, match="points"):
-        furthest_point_sample(torch.zeros((1, 65537, 3), device=dev), 4)
-    with pytest.raises(ValueError, match="points"):
-        furthest_point_sample_masked(
-            torch.zeros((1, 32769, 3), device=dev), torch.ones((1, 32769), dtype=torch.bool, device=dev), 4
-        )
+        furthest_point_sample(torch.zeros((1, 0, 3), device=dev), 4)
+    assert furthest_point_sample(torch.zeros((1, 65537, 3), device=dev), 4).shape == (1, 4)
+    got = furthest_point_sample_masked(
+        torch.zeros((1, 32769, 3), device=dev), torch.ones((1, 32769), dtype=torch.bool, device=dev), 4
+    )
+    assert got.shape == (1, 4)
+
+
+# past 65,536 points (main mode) and 32,768 (masked mode) FPS streams its
+# running distances through global memory, a cooperative grid per launch;
+# every cloud's blocks reduce their winners through a grid barrier
+@pytest.mark.parametrize("b,n,m", [(1, 65537, 64), (3, 100_000, 300), (2, 262_144, 32), (1, 1_048_576, 16)])
+def test_fps_kernel_streaming_mode(dev, rng, b, n, m):
+    xyz = torch.from_numpy((rng.random((b, n, 3)) - 0.5).astype(np.float32)).to(dev)
+    xyz[:, 5::9973] = 0.001  # near-origin points: never selected
+    before = _build.launches["fps"]
+    got = furthest_point_sample(xyz, m)
+    assert _build.launches["fps"] == before + 1
+    torch.testing.assert_close(got, furthest_point_sample_plain(xyz, m), atol=0, rtol=0)
+    assert torch.equal(got, furthest_point_sample(xyz, m))
+
+
+def test_fps_kernel_streaming_ties(dev, rng):
+    """Integer-grid points repeated over 100,000 points: every value ties
+    across blocks of the grid, the lower index must win; m reaches the
+    distances' zeros."""
+    tile = rng.integers(-3, 4, size=(2, 2000, 3)).astype(np.float32)
+    xyz = torch.from_numpy(np.tile(tile, (1, 50, 1))).to(dev)
+    got = furthest_point_sample(xyz, 400)
+    torch.testing.assert_close(got, furthest_point_sample_plain(xyz, 400), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("n", [32769, 100_000, 1_048_576])
+def test_fps_masked_kernel_streaming_mode(dev, rng, n):
+    """Masked rows past 32,768 points: mixed, suffix-only, all-valid and
+    all-invalid rows, at max_needed below m."""
+    s = 4
+    xyz = torch.from_numpy((rng.random((s, n, 3)) - 0.5).astype(np.float32)).to(dev)
+    valid = torch.from_numpy(rng.random((s, n)) < 0.5).to(dev)
+    valid[0] = False
+    valid[1, : n // 2] = False
+    valid[2] = True
+    _check_masked(xyz, valid, 48, 40)
 
 
 # csrc/fps.cu spreads a cloud over a cluster of 1, 2, 4, 8 or 16 blocks of
@@ -248,6 +288,11 @@ def test_multicyl_kernel_segments(dev, rng, case, nsample):
     centers[:, -1] = 50.0  # no hit in any combo
     args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (cloud, centers, _rotations(rng, (b, m)))]
     args += [radii, HMIN, hmaxs, nsample]
+    if case == "unsorted_combos":  # refused, as the JAX package's index-order query refuses them
+        for fn in (multi_cylinder_group, multi_cylinder_group_plain):
+            with pytest.raises(ValueError, match="ascending"):
+                fn(*args)
+        return
     before = _build.launches["multicyl"]
     idx, rel = multi_cylinder_group(*args, emit_rel=True)
     assert _build.launches["multicyl"] == before + 1
@@ -268,6 +313,40 @@ def test_multicyl_kernel_fewer_combos(dev, rng):
     torch.testing.assert_close(
         multi_cylinder_group(*args)[0], multi_cylinder_group_plain(*args)[0], atol=0, rtol=0
     )
+
+
+# the kernel keeps a lane per combo: up to 28 (4 radii x 7 depths, 7 x 4),
+# at most 7 radii and 7 depths; 4 x 5 is the num_depth=5 model's, 1 x 4 the
+# single-scale model's
+@pytest.mark.parametrize("radii,hmaxs", [
+    ((0.08,), HMAXS),
+    (RADII, (0.01, 0.02, 0.03, 0.04, 0.05)),
+    (RADII, (0.005, 0.01, 0.02, 0.03, 0.04, 0.05, 0.06)),
+    ((0.01, 0.02, 0.03, 0.04, 0.05, 0.06, 0.08), HMAXS),
+    ((0.02, 0.04, 0.06, 0.08, 0.1), (0.01, 0.02, 0.03, 0.04, 0.05)),
+])
+@pytest.mark.parametrize("nsample", [16, 64])
+def test_multicyl_kernel_more_combos(dev, rng, radii, hmaxs, nsample):
+    b, n, m = 2, 6001, 97
+    cloud = ((rng.random((b, n, 3)) - 0.5) * 0.3).astype(np.float32)
+    centers = np.take_along_axis(cloud, rng.integers(0, n, size=(b, m))[..., None], axis=1).copy()
+    centers[:, -3:] = 50.0  # no hit in any combo
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (cloud, centers, _rotations(rng, (b, m)))]
+    args += [radii, HMIN, hmaxs, nsample]
+    before = _build.launches["multicyl"]
+    idx, rel = multi_cylinder_group(*args, emit_rel=True)
+    assert _build.launches["multicyl"] == before + 1
+    assert idx.shape == (b, len(radii), len(hmaxs), m, nsample)
+    idx_p, rel_p = multi_cylinder_group_plain(*args, emit_rel=True)
+    assert torch.equal(idx, idx_p) and torch.equal(rel, rel_p)
+
+
+def test_multicyl_kernel_refuses_more_than_7_a_side(dev, rng):
+    cloud = torch.zeros((1, 10, 3), device=dev)
+    rot = torch.eye(3, device=dev).expand(1, 1, 3, 3).contiguous()
+    with pytest.raises(ValueError, match="at most 7"):
+        multi_cylinder_group(cloud, cloud[:, :1].contiguous(), rot, (0.01,) * 1, -0.02,
+                             tuple(0.01 * (i + 1) for i in range(8)), 4)
 
 
 def test_widthmlp_kernel_matches_plain(dev, rng):

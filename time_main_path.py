@@ -15,7 +15,8 @@ run p50s, and the median's ratio to the first tree's), and, for two trees,
 the rounds in which the second tree's p50 is lower than the first's.
 
 With ``--kernel NAME`` each run times one kernel's wrapper instead, on the
-inputs its path gives it: ``collision``, the collision counts of the
+inputs its path gives it: ``fps``, the backbone's FPS of those scenes
+(20,000 -> 2,048 points); ``collision``, the collision counts of the
 decoded grasps of those scenes on the voxel-downsampled clouds (the
 collision filter's inputs); ``fps_masked``, OBS's masked FPS on the
 compacted rows of the scenes' own objects at the path's max_needed;
@@ -91,6 +92,12 @@ def kernel_inputs(kernel: str, cloud, instance, model):
     torch.backends.cudnn.allow_tf32 = False
     with torch.no_grad():
         ep = model(cloud)
+    if kernel == "fps":
+        from graspbalance_tpu_torch.ops.fps import furthest_point_sample, furthest_point_sample_plain
+
+        args = (cloud, model.backbone.stages[0][0])
+        return functools.partial(furthest_point_sample, *args), functools.partial(furthest_point_sample_plain,
+                                                                                  *args), None
     if kernel == "collision":
         from graspbalance_tpu_torch.eval.collision import voxel_downsample_fixed
         from graspbalance_tpu_torch.ops.collision import collision_counts, collision_counts_plain, pack_grasp_params
@@ -158,7 +165,7 @@ def main() -> int:
     ap.add_argument("trees", nargs="+")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--iters", type=int, default=30)
-    ap.add_argument("--kernel", choices=("collision", "fps_masked", "select"),
+    ap.add_argument("--kernel", choices=("fps", "collision", "fps_masked", "select"),
                     help="time one kernel's wrapper on its path's inputs")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
