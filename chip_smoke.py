@@ -14,8 +14,10 @@ set abstraction and local aggregation fused, the width head on the query's
 gripper-frame coordinates) through forward + decode and both pipelines; the
 table-gather probe; the training loop through its CLI, with a resume, an
 eval pass and both label pipelines; the closed-loop quality gate; the DSN's
-training at bs=4 and its gate; and the inference CLI over a synthetic batch
-and a GraspNet-1B-shaped dump. Phases, each fatal on failure:
+training at bs=4 and its gate; the inference CLI over a synthetic batch
+and a GraspNet-1B-shaped dump; the other models; and data-parallel training
+and the sharded DRP forward on ranks of the one card. Phases, each fatal on
+failure:
 
   1. print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from csrc/*.cu (one nvcc per source, all in
@@ -180,6 +182,32 @@ and a GraspNet-1B-shaped dump. Phases, each fatal on failure:
      within BF16_DSN_RTOL) and LocalAggregation(grouper='knn') at
      KNN_GROUPER_STAGES (one knn launch each, within KNN_GROUPER_RTOL).
      Prints the launches per kernel over these paths.
+ 20. data parallelism (parallel/): 20a, a world of one NCCL rank runs
+     train_step's data-parallel path (mesh, collectives) on phase 9's batch,
+     bit-equal to the one-process step (loss, metrics, gradients,
+     parameters and BatchNorm statistics; fps, multicyl, scatter launched);
+     20b, DP_RANKS gloo ranks sharing the card (NCCL refuses two ranks on
+     one device) take the loss-only eval step and one training step of the
+     default model at full width on DP_BATCH scenes, DP_BATCH / DP_RANKS a
+     rank, held against the one-process DP_BATCH steps from the same state:
+     the eval losses to DP_EVAL_RTOL, the first BatchNorm's statistics to
+     DP_FIRST_STAT_TOL, and the losses, the gradients' median cosine, the
+     running statistics and the firm-gradient parameters within
+     DP_FLOOR_FACTOR of how far the one-process step on the same scenes in
+     another order (DP_ORDER) lies from it; the ranks bit-equal to each
+     other; the same steps with each planted fault of DP_FAULTS must fail
+     that comparison; then one DSN step on phase 17's scenes, held the same
+     way; 20c, sharded_drp_forward on a (1, DP_RANKS) mesh of the same ranks
+     at DRP_STAGES on SHARDED_BATCH 20,000-point scenes against the
+     unsharded DRP forward (indices and coordinates exact, features within
+     SHARDED_FEAT_RTOL of each output's largest |value|). Prints each
+     step's and forward's ms beside the one-process ones; ranks sharing one
+     card give no speed figure.
+
+Under torchrun (WORLD_SIZE set), the script runs 20b and 20c alone, on one
+NCCL rank a card, S dividing DP_BATCH; the ms are then a speed figure:
+
+    torchrun --standalone --nproc_per_node=S chip_smoke.py
 
 Prints the kernel table as one JSON line, a row per TPU kernel (K2 and K3 are
 covered by K1's kernel): its launches on the path named in its "path" (the
@@ -196,7 +224,8 @@ times are printed in phases 6 and 10); each row's "gate_launches" counts
 its launches in phase 16's short gate, each row's "dsn_train_launches"
 in one DSN training step of phase 17, each row's "pointnet2_launches" over
 phase 19's paths (K1 and K4 also with their streaming mode's ms at each N,
-K7 with its ms at 20 and 28 combos); and as the last
+K7 with its ms at 20 and 28 combos), each row's "dp_launches" over phase
+20's data-parallel steps (20a's, and each rank's 20b steps); and as the last
 line {"ok": true, "device": {...}}. Without CUDA it exits non-zero before
 any result. Imports nothing of JAX.
 """
@@ -207,6 +236,7 @@ import contextlib
 import copy
 import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -309,6 +339,10 @@ PATH_KERNELS = {
     "depth5": ("fps", "multicyl", "widthmlp"),
     "nearest": ("fps", "widthmlp"),
     "dsn_bf16": ("fps", "knn"),
+    # phase 20: the data-parallel steps (each rank's; the grasp model's eval
+    # and training steps)
+    "dp_train": ("fps", "multicyl", "scatter", "widthmlp"),
+    "dp_dsn": ("fps", "knn", "scatter"),
 }
 # phase 19: LocalAggregation(grouper='knn') at DRP stages 2 and 3's
 # (points, channels, K), and the tolerances of K9's other callers against
@@ -324,6 +358,44 @@ STREAM_SIZES = ((BATCH, 100_000, 64), (2, 1_048_576, 16))
 STREAM_TIMED_M = 256
 MANY_COMBOS = {20: (0.01, 0.02, 0.03, 0.04, 0.05), 28: (0.01, 0.02, 0.03, 0.04, 0.05, 0.06, 0.07)}
 P2_TRAIN_STEPS = 4  # cli/train --backbone pointnet2 steps at TRAIN_BATCH
+# phase 20, data parallelism: DP_RANKS gloo ranks sharing the card take one
+# step at DP_BATCH (20b), then the sharded DRP forward at SHARDED_BATCH (20c)
+DP_RANKS = 2
+DP_BATCH = 4
+SHARDED_BATCH = 2
+DP_TIMEOUT_S = 420  # the ranks' run, joined with this limit
+# two ranks against one process at full width: the ranks add their partial
+# sums of BatchNorm's statistics and of the losses' denominators (float64
+# across the ranks) where one process sums all rows in one cascade. At full
+# width the batch-statistics step amplifies any rounding (ROADMAP Queue 3:
+# the float32 forward is far from float64 at the full stage table): the
+# one-process step on the same scenes in another order, the same function,
+# already moves the gradients to a median cosine of ~0.92 and the running
+# statistics by ~1% (NVIDIA H100 80GB HBM3, 700 W). So the ranks' step is held to
+# that floor, measured in the same run: its largest relative loss
+# difference, its median (1 - gradient cosine) and its largest statistic
+# difference, and the parameter elements with a firm gradient (|grad| above
+# DP_FIRM x its tensor's largest, or 1e-4 x the model's) that stepped apart by
+# more than 1e-3 x lr + 2 ulp (Adam's first step moves each by about lr), each
+# within DP_FLOOR_FACTOR of the reordered step's. Two checks that nothing
+# amplifies hold the split itself: the loss-only eval step from the initial
+# state (running statistics, so the forward is row-local, and the losses'
+# global denominators), each loss to DP_EVAL_RTOL relative (float32 sums in
+# another order: 1.1e-7 on an H100 at 700 W), and the first BatchNorm's running
+# statistics after the step (its input is the data through one Linear) to
+# DP_FIRST_STAT_TOL of max(1, |statistic|). Each planted fault of DP_FAULTS
+# (parallel/faults.py) must fail them: at full width the 'loss' fault moves
+# the eval losses by only 5.4e-5, as the ranks' scenes have similar ratios.
+DP_FLOOR_FACTOR = 3.0
+DP_EVAL_RTOL = 1e-5
+DP_FIRST_STAT_TOL = 1e-5
+DP_FAULTS = ("loss", "bn")  # of parallel/faults.py
+DP_FIRM = 1e-2
+DP_ORDER = (2, 3, 0, 1)  # the reordered batch: the same scenes, the ranks' halves swapped
+# the sharded forward's features against the unsharded one's: each output
+# row runs the same operations, on products over fewer rows, which cuBLAS
+# may round apart; of each output's largest |value|
+SHARDED_FEAT_RTOL = 1e-5
 # one row per TPU kernel: (its number, the name of the row, the kernel
 # measured for it, the source, the TPU kernel's def, the path whose launches
 # the row reports); K2 and K3 compute K1's function in other layouts and
@@ -1897,6 +1969,431 @@ def data_phase(dev, smi: str) -> dict:
     return launches
 
 
+def _cpu(tensors: dict) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in tensors.items()}
+
+
+def _step_record(model, metrics, lr: float) -> dict:
+    """A training step's metrics, gradients, state after it (on the host)
+    and the learning rate it stepped at."""
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": {k: p.grad.detach().cpu().clone() for k, p in model.named_parameters()},
+            "state": _cpu(model.state_dict()), "lr": lr}
+
+
+def _steps_ms(step, calls: int = 2) -> float:
+    """Median ms of ``calls`` more calls of ``step`` (host clock, the card
+    synchronised around each)."""
+    import torch
+
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def dp_grasp(dev):
+    """Phase 20b's default model at full width from SEED, its optimizer and
+    schedule, and the DP_BATCH scenes (host arrays): the same in the parent
+    and on every rank."""
+    from graspbalance_tpu_torch.data.synthetic import SceneConfig, make_batch
+    from graspbalance_tpu_torch.train.config import Config, DataConfig
+    from graspbalance_tpu_torch.train.train_step import build_model, make_optimizer
+    from graspbalance_tpu_torch.weights import init_random_
+
+    cfg = Config(data=DataConfig(batch_size=DP_BATCH))
+    model = init_random_(build_model(cfg, device=dev), SEED)
+    return cfg, model, *make_optimizer(model, cfg, STEPS_PER_EPOCH), make_batch(
+        SEED, DP_BATCH, SceneConfig(num_points=NUM_POINTS))
+
+
+def dp_dsn(dev):
+    """Phase 20b's DSN (init_dsn(0)), its optimizer and schedule, and phase
+    17's DP_BATCH scenes: clouds (B, N, 3) and instance labels (host)."""
+    import numpy as np
+
+    from graspbalance_tpu_torch.data.synthetic import SceneConfig, make_batch
+    from graspbalance_tpu_torch.models.dsn import DSN
+    from graspbalance_tpu_torch.train.seg_step import init_dsn, make_seg_optimizer
+
+    scene = SceneConfig(num_points=NUM_POINTS, table_extent=0.15, object_scatter=0.12, num_objects=8,
+                        max_objects=DSN_MAX_OBJECTS, analytic_labels=True, emit_label_tensors=False)
+    b = make_batch(1, DP_BATCH, scene)
+    model = init_dsn(DSN().to(dev), 0)
+    return (model, *make_seg_optimizer(model, DSN_TRAIN_STEPS + 2), np.ascontiguousarray(b["point_clouds"][..., :3]),
+            b["instance_label"].astype(np.int32))
+
+
+def dp_drp(dev):
+    """Phase 20c's DRP (DRP_STAGES, random weights from SEED, eval mode) and
+    SHARDED_BATCH 20,000-point scenes on the card."""
+    import torch
+
+    from graspbalance_tpu_torch.data.synthetic import SceneConfig, make_scenes
+    from graspbalance_tpu_torch.models.drp import DRP
+    from graspbalance_tpu_torch.weights import init_random_
+
+    clouds, _ = make_scenes(SEED, SHARDED_BATCH, SceneConfig(num_points=NUM_POINTS))
+    return init_random_(DRP().to(dev), SEED).eval(), torch.from_numpy(clouds).to(dev)
+
+
+def _grasp_step(model, opt, sched, cfg, batch, mesh=None) -> dict:
+    """Phase 20b's grasp-model record from a fresh state: the loss-only
+    eval step (its "eval" metrics; the running statistics as initialised)
+    and then one training step, on ``batch`` (this rank's rows with
+    ``mesh``)."""
+    from graspbalance_tpu_torch.train.train_step import eval_step, train_step
+
+    lr = opt.param_groups[0]["lr"]
+    ev = {k: float(v) for k, v in eval_step(model, batch, cfg, mesh=mesh).items()}
+    return {**_step_record(model, train_step(model, opt, sched, batch, 0, cfg, mesh=mesh), lr), "eval": ev}
+
+
+def _on_ranks(dev) -> dict:
+    """This rank's launches per kernel, their sum over the ranks, and the
+    kernels some rank did not launch."""
+    import torch
+    import torch.distributed as dist
+
+    from graspbalance_tpu_torch import _build
+
+    names = list(_build.launches)
+    n = torch.tensor([_build.launches[k] for k in names], dtype=torch.int64, device=dev)
+    t = torch.stack([n, (n == 0).long()])
+    dist.all_reduce(t)
+    return {"launches": dict(_build.launches), "launches_sum": dict(zip(names, t[0].tolist())),
+            "unlaunched": [k for k, z in zip(names, t[1].tolist()) if z]}
+
+
+def _same_on_ranks(tensors, dev) -> bool:
+    """Whether every rank holds the same values as rank 0 (float32 and the
+    integers used here are exact in float64)."""
+    import torch
+    import torch.distributed as dist
+
+    flat = torch.cat([t.detach().reshape(-1).to(dev, torch.float64) for t in tensors])
+    ref = flat.clone()
+    dist.broadcast(ref, 0)
+    bad = (flat != ref).sum().reshape(1)
+    dist.all_reduce(bad)
+    return int(bad.item()) == 0
+
+
+def dp_rank_work(dev, world: int) -> dict:
+    """Phases 20b and 20c on one rank of a process group of ``world`` ranks
+    (gloo ranks sharing the card, or NCCL ranks a card each): the grasp
+    model's eval and training steps on DP_BATCH / world scenes as they are
+    and with each of DP_FAULTS planted, the DSN's step, and the sharded DRP
+    forward; what phase 20 compares (rank 0's records), with the launches,
+    whether the ranks agree bit for bit, and the ms."""
+    import torch
+
+    from graspbalance_tpu_torch import _build
+    from graspbalance_tpu_torch.parallel.backbone import sharded_drp_forward
+    from graspbalance_tpu_torch.parallel.faults import planted_fault
+    from graspbalance_tpu_torch.parallel.mesh import make_mesh, replicate_, shard_batch, shard_rows
+    from graspbalance_tpu_torch.train.seg_step import seg_train_step
+    from graspbalance_tpu_torch.train.train_step import make_optimizer, train_step
+
+    res = {"grasp": {}}
+    mesh = make_mesh(world, 1, device_type="cuda")
+    cfg, model, _, _, batch = dp_grasp(dev)
+    state0 = copy.deepcopy(model.state_dict())
+    batch = shard_batch(batch, mesh)
+    for fault in ("none", *DP_FAULTS):
+        model.load_state_dict(state0)
+        opt, sched = make_optimizer(model, cfg, STEPS_PER_EPOCH)
+        replicate_(model, mesh)
+        _build.reset_launches()
+        with planted_fault(fault, world):
+            rec = _grasp_step(model, opt, sched, cfg, batch, mesh)
+        torch.cuda.synchronize()
+        if fault == "none":
+            rec.update(_on_ranks(dev), equal=_same_on_ranks(model.state_dict().values(), dev),
+                       ms=_steps_ms(lambda: train_step(model, opt, sched, batch, 0, cfg, mesh=mesh)))
+        res["grasp"][fault] = rec
+    del model, opt, sched, batch, state0
+
+    dsn, opt, sched, cloud, inst = dp_dsn(dev)
+    replicate_(dsn, mesh)
+    cloud, inst = shard_rows(cloud, mesh), shard_rows(inst, mesh)
+    lr = opt.param_groups[0]["lr"]
+    _build.reset_launches()
+    res["dsn"] = _step_record(dsn, seg_train_step(dsn, opt, sched, cloud, inst, DSN_MAX_OBJECTS, mesh=mesh), lr)
+    torch.cuda.synchronize()
+    res["dsn"].update(_on_ranks(dev), equal=_same_on_ranks(dsn.state_dict().values(), dev),
+                      ms=_steps_ms(lambda: seg_train_step(dsn, opt, sched, cloud, inst, DSN_MAX_OBJECTS, mesh=mesh)))
+    del dsn, opt, sched
+    torch.cuda.empty_cache()
+
+    mesh = make_mesh(1, world, device_type="cuda")
+    drp, clouds = dp_drp(dev)
+    got = {k: v for k, v in sharded_drp_forward(mesh, drp, clouds).items() if v is not None}
+    torch.cuda.synchronize()
+    res["sharded"] = {"out": _cpu(got), "equal": _same_on_ranks(got.values(), dev),
+                      "ms": _steps_ms(lambda: sharded_drp_forward(mesh, drp, clouds), calls=1)}
+    return res
+
+
+def dp_rank(rank: int, world: int, out: str) -> None:
+    """``dp_rank_work`` on one of the gloo ranks sharing the card (spawned
+    by parallel/ranks.run_ranks); rank 0 writes <out>/rank0.pt."""
+    import torch
+
+    torch.cuda.set_device(0)
+    res = dp_rank_work(torch.device("cuda", 0), world)
+    if rank == 0:
+        torch.save(res, f"{out}/rank0.pt")
+
+
+def dp_references(dev) -> dict:
+    """The one-process runs phase 20 holds the ranks' against: the grasp
+    model's eval and training steps and the DSN's step on all DP_BATCH
+    scenes ("one", with its ms) and on the same scenes reordered
+    ("reordered"), and the unsharded DRP forward with its ms."""
+    import torch
+
+    from graspbalance_tpu_torch.train.seg_step import seg_train_step
+    from graspbalance_tpu_torch.train.train_step import train_step
+
+    refs = {"grasp": {}, "dsn": {}}
+    for name, rows in (("one", slice(None)), ("reordered", list(DP_ORDER))):
+        cfg, model, opt, sched, batch = dp_grasp(dev)
+        batch = {k: v[rows] for k, v in batch.items()}
+        refs["grasp"][name] = _grasp_step(model, opt, sched, cfg, batch)
+        if name == "one":
+            refs["grasp"][name]["ms"] = _steps_ms(lambda: train_step(model, opt, sched, batch, 0, cfg))
+        del model, opt, sched, batch
+        dsn, opt, sched, cloud, inst = dp_dsn(dev)
+        lr = opt.param_groups[0]["lr"]
+        cloud, inst = cloud[rows], inst[rows]
+        refs["dsn"][name] = _step_record(dsn, seg_train_step(dsn, opt, sched, cloud, inst, DSN_MAX_OBJECTS), lr)
+        if name == "one":
+            refs["dsn"][name]["ms"] = _steps_ms(lambda: seg_train_step(dsn, opt, sched, cloud, inst,
+                                                                        DSN_MAX_OBJECTS))
+        del dsn, opt, sched
+    drp, clouds = dp_drp(dev)
+    with torch.no_grad():
+        refs["sharded"] = {"out": _cpu({k: v for k, v in drp(clouds).items() if v is not None}),
+                           "ms": _steps_ms(lambda: drp(clouds), calls=3)}
+    del drp, clouds
+    torch.cuda.empty_cache()
+    return refs
+
+
+def step_spread(got: dict, want: dict, zero: set) -> dict:
+    """How far the training step ``got`` lies from ``want`` (the same
+    state, the same scenes): the largest relative difference of a loss, the
+    median and the largest (1 - cosine) of a parameter's gradient (the
+    zero-gradient biases apart), the largest statistic difference of
+    max(1, |statistic|), that of the first BatchNorm alone, the elements
+    whose gradient is firm that stepped apart (see DP_FIRM), and, where
+    both carry an eval step, the largest relative difference of its loss."""
+    losses = [k for k in want["metrics"] if k.startswith("loss/")]
+    loss = max(abs(got["metrics"][k] - want["metrics"][k]) / max(abs(want["metrics"][k]), 1e-30) for k in losses)
+    gaps = []
+    model_max = max(float(g.abs().max()) for g in want["grads"].values())
+    firm_apart = 0
+    for k, w in want["grads"].items():
+        firm = w.abs() > DP_FIRM * max(float(w.abs().max()), 1e-4 * model_max)
+        p, q = got["state"][k][firm], want["state"][k][firm]
+        firm_apart += int(((p - q).abs() > 1e-3 * want["lr"] + 2 * _ulp(q)).sum())
+        if k not in zero:
+            a, c = got["grads"][k].double().flatten(), w.double().flatten()
+            gaps.append(1.0 - float(a @ c / (a.norm() * c.norm()).clamp_min(1e-30)))
+    stats = {k: float((got["state"][k].double() - w.double()).abs().max()) / max(1.0, float(w.abs().max()))
+             for k, w in want["state"].items() if "running" in k}
+    first_bn = next(iter(stats)).rsplit(".", 1)[0]
+    out = {"loss": loss, "grad_median": statistics.median(gaps), "grad_max": max(gaps), "stat": max(stats.values()),
+           "first_stat": max(v for k, v in stats.items() if k.startswith(first_bn + ".")), "firm_apart": firm_apart}
+    if "eval" in want:
+        out["eval"] = max(abs(got["eval"][k] - w) / max(abs(w), 1e-30) for k, w in want["eval"].items()
+                          if k.startswith("loss/"))
+    return out
+
+
+def _ulp(x):
+    """The spacing of float32 at each |x|."""
+    import torch
+
+    return torch.nextafter(x.abs(), torch.full_like(x, float("inf"))) - x.abs()
+
+
+def dp_step_failures(got: dict, want: dict, floor: dict, zero: set) -> tuple[dict, dict, list]:
+    """Phase 20b's comparison of a rank's step with the one-process step,
+    beside the one-process step on the reordered scenes (``floor``; see
+    DP_FLOOR_FACTOR): (the rank's spreads, the reordered step's, the checks
+    it fails)."""
+    require(got["lr"] == want["lr"] == floor["lr"], f"learning rates {got['lr']}, {want['lr']}, {floor['lr']}")
+    ranks, order = step_spread(got, want, zero), step_spread(floor, want, zero)
+    fails = [f"{k} {ranks[k]:.3g} > {DP_FLOOR_FACTOR} x the reordered step's {order[k]:.3g}"
+             for k in ("loss", "grad_median", "stat", "firm_apart") if ranks[k] > DP_FLOOR_FACTOR * order[k] + 1e-6]
+    fails += [f"{k} {ranks[k]:.3g} > {tol}" for k, tol in (("first_stat", DP_FIRST_STAT_TOL),
+                                                           ("eval", DP_EVAL_RTOL)) if ranks.get(k, 0.0) > tol]
+    return ranks, order, fails
+
+
+def dp_check(res: dict, refs: dict, world: int, how: str, smi: str) -> dict:
+    """Phases 20b and 20c's checks of rank 0's records ``res``
+    (``dp_rank_work``) against ``refs`` (``dp_references``); ``how`` names
+    the ranks. Returns the launches per kernel of the ranks' steps."""
+    import torch
+
+    from graspbalance_tpu_torch import _build
+    from graspbalance_tpu_torch.models.point_transformer import PT_STAGES
+    from graspbalance_tpu_torch.parallel.faults import FAULTS
+
+    launches = dict.fromkeys(_build.launches, 0)
+    zero = {"grasp": set(ZERO_GRADIENT), "dsn": dsn_zero_gradient(PT_STAGES)}
+    speed = "" if "a card each" in how else "; ranks sharing one card give no speed figure"
+    for part, path in (("grasp", "dp_train"), ("dsn", "dp_dsn")):
+        got = res["grasp"]["none"] if part == "grasp" else res["dsn"]
+        want, floor = refs[part]["one"], refs[part]["reordered"]
+        require(got["equal"], f"20b {part}: the ranks' parameters and statistics differ after the step")
+        require(not set(PATH_KERNELS[path]) & set(got["unlaunched"]),
+                f"20b {part}: some rank launched none of {got['unlaunched']}")
+        for k, n in got["launches_sum"].items():
+            launches[k] += n
+        ranks, order, fails = dp_step_failures(got, want, floor, zero[part])
+        require(not fails, f"20b {part} over {how}: " + "; ".join(fails))
+        loss = "loss/overall_loss" if part == "grasp" else "loss/seg_loss"
+        print(f"20b {part}, bs={DP_BATCH} over {how} (bs={DP_BATCH // world} a rank) against one process "
+              f"({NUM_POINTS} pts): " + "; ".join(f"{k} {ranks[k]:.3g} (reordered {order[k]:.3g})" for k in ranks)
+              + f"; {loss} {got['metrics'][loss]!r} vs {want['metrics'][loss]!r} (reordered "
+              f"{floor['metrics'][loss]!r}); the ranks bit-equal after the step; launches on rank 0 "
+              f"{got['launches']}; {got['ms']:.3f} ms a step on rank 0 against {want['ms']:.3f} ms in one process "
+              f"({smi}{speed})")
+    for fault in DP_FAULTS:
+        ranks, _, fails = dp_step_failures(res["grasp"][fault], refs["grasp"]["one"], refs["grasp"]["reordered"],
+                                           zero["grasp"])
+        require(fails, f"20b: the grasp step with the planted fault {fault!r} passed the comparison: {ranks}")
+        print(f"20b planted fault {fault!r} ({FAULTS[fault]}) rejected: " + "; ".join(fails)
+              + " (" + ", ".join(f"{k} {v:.3g}" for k, v in ranks.items()) + ")")
+
+    got, want = res["sharded"]["out"], refs["sharded"]["out"]
+    require(res["sharded"]["equal"], "20c: the ranks' forwards differ")
+    require(got.keys() == want.keys(), f"20c keys: {sorted(got)} vs {sorted(want)}")
+    feat_errs = {}
+    for k, w in want.items():
+        require(got[k].shape == w.shape and got[k].dtype == w.dtype, f"20c {k}: {got[k].shape} vs {w.shape}")
+        if "features" in k:
+            feat_errs[k] = float((got[k] - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            require(feat_errs[k] <= SHARDED_FEAT_RTOL, f"20c {k}: {feat_errs[k]:.3g} > {SHARDED_FEAT_RTOL}")
+        else:
+            require(torch.equal(got[k], w), f"20c {k}: not exact")
+    print(f"20c sharded_drp_forward, a (1, {world}) mesh of {how}, DRP_STAGES, bs={SHARDED_BATCH} x {NUM_POINTS} "
+          f"pts: indices and coordinates exact, features within "
+          + ", ".join(f"{k} {e:.3g}" for k, e in feat_errs.items())
+          + f" of each output's largest |value|; {res['sharded']['ms']:.3f} ms a forward on rank 0 against "
+          f"{refs['sharded']['ms']:.3f} ms unsharded ({smi}{speed})")
+    return launches
+
+
+def dp_phase(dev, smi: str) -> dict:
+    """Phase 20 (see the module docstring). Returns the launches per kernel
+    of its data-parallel steps (20a's, and the ranks' 20b steps)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from graspbalance_tpu_torch import _build
+    from graspbalance_tpu_torch.data.synthetic import SceneConfig, make_batch
+    from graspbalance_tpu_torch.parallel.mesh import make_mesh, replicate_
+    from graspbalance_tpu_torch.parallel.ranks import run_ranks
+    from graspbalance_tpu_torch.train.config import Config
+    from graspbalance_tpu_torch.train.train_step import build_model, make_optimizer, to_device, train_step
+    from graspbalance_tpu_torch.weights import init_random_
+
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(_build.launches, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        # 20a: a world of one NCCL rank, phase 9's batch, against the one-process step
+        cfg = Config()
+        batch = to_device(make_batch(SEED, TRAIN_BATCH, SceneConfig(num_points=NUM_POINTS)), dev)
+        recs = []
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl", rank=0, world_size=1)
+        try:
+            for mesh in (None, make_mesh(1, 1, device_type="cuda")):
+                model = init_random_(build_model(cfg, device=dev), SEED)
+                opt, sched = make_optimizer(model, cfg, STEPS_PER_EPOCH)
+                replicate_(model, mesh)
+                lr = opt.param_groups[0]["lr"]
+                _build.reset_launches()
+                metrics = train_step(model, opt, sched, batch, 0, cfg, mesh=mesh)
+                torch.cuda.synchronize()
+                recs.append((_step_record(model, metrics, lr), dict(_build.launches)))
+                del model, opt, sched
+        finally:
+            dist.destroy_process_group()
+        (one, _), (world1, world1_launches) = recs
+        require(all(world1_launches[k] > 0 for k in PATH_KERNELS["train"]),
+                f"20a: launches {world1_launches}; needs fps, multicyl, scatter > 0")
+        require(world1["metrics"] == one["metrics"], f"20a metrics: {world1['metrics']} vs {one['metrics']}")
+        for part in ("grads", "state"):
+            bad = [k for k, v in one[part].items() if not torch.equal(v, world1[part][k])]
+            require(not bad, f"20a: {part} not bit-equal: {bad[:5]}")
+        print(f"20a data-parallel step in a world of one NCCL rank, bs={TRAIN_BATCH}: loss "
+              f"{world1['metrics']['loss/overall_loss']!r}, metrics, {len(one['grads'])} gradients and "
+              f"{len(one['state'])} state tensors (parameters, BatchNorm statistics) bit-equal to the one-process "
+              f"step; launches {world1_launches}")
+        for k, n in world1_launches.items():
+            launches[k] += n
+        del batch, recs
+
+        # 20b, 20c: the one-process references, then the ranks
+        refs = dp_references(dev)
+        t0 = time.perf_counter()
+        run_ranks(dp_rank, DP_RANKS, (tmp,), init_file=f"{tmp}/gloo", backend="gloo", timeout=DP_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t0
+        res = torch.load(f"{tmp}/rank0.pt")
+
+    for k, n in dp_check(res, refs, DP_RANKS, "gloo ranks sharing the card", smi).items():
+        launches[k] += n
+    print(f"phase 20: {time.perf_counter() - t_phase:.1f} s, the ranks' run {ranks_s:.1f} s; launches of the "
+          f"data-parallel steps {launches}")
+    return launches
+
+
+def multicard_main() -> int:
+    """Phases 20b and 20c on one NCCL rank a card, under
+    ``torchrun --standalone --nproc_per_node=S chip_smoke.py`` (S divides
+    DP_BATCH): each step's ms is then a speed figure."""
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this smoke needs CUDA cards", file=sys.stderr)
+        return 1
+    from graspbalance_tpu_torch import _build
+    from graspbalance_tpu_torch.parallel.mesh import init_from_env
+
+    dev, _ = init_from_env("cuda")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    require(DP_BATCH % world == 0, f"{world} ranks do not split DP_BATCH = {DP_BATCH}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
+    if rank == 0:
+        print(smi[0])
+        print(f"{world} NCCL ranks, a card each: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+        _build.library()  # once, before the other ranks load it
+    dist.barrier()
+    _build.library()
+    res = dp_rank_work(dev, world)
+    if rank == 0:
+        dp_check(res, dp_references(dev), world, f"{world} NCCL ranks, a card each", smi[0])
+    dist.barrier()
+    dist.destroy_process_group()
+    if rank == 0:
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2316,6 +2813,10 @@ def main() -> int:
     print("pointnet2 and variant paths, launches per kernel: " + json.dumps(
         {k: sum(p2_launches[p][k] for p in p2_launches) for k in _build.launches}))
 
+    # 20. data parallelism: a world of one NCCL rank, two gloo ranks sharing
+    # the card, and the point-axis-sharded DRP forward
+    dp_launches = dp_phase(dev, smi)
+
     table = [
         {
             "name": name,
@@ -2337,6 +2838,7 @@ def main() -> int:
             "gate_launches": path_launches["gate"][measured],
             "dsn_train_launches": path_launches["dsn_train"][measured],
             "pointnet2_launches": sum(p2_launches[p][measured] for p in p2_launches),
+            "dp_launches": dp_launches[measured],
             **({"streaming_ms": {str(n): ms for n, ms in p2_extra["stream"][measured].items()},
                 "streaming_slots": STREAM_TIMED_M} if measured in p2_extra["stream"] else {}),
             **({"many_combos_ms": {str(c): t[0] for c, t in p2_extra["multicyl"].items()}}
@@ -2357,4 +2859,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(multicard_main() if "WORLD_SIZE" in os.environ else main())

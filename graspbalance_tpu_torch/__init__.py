@@ -1,5 +1,6 @@
 """graspbalance_tpu_torch: the GraspBalance eval forward, decode, serving
-pipeline and training, and the DSN's training, in PyTorch, with hand-written CUDA kernels for an
+pipeline and training (on one card or data-parallel over several), and the
+DSN's training, in PyTorch, with hand-written CUDA kernels for an
 NVIDIA H100 (sm_90a).
 
 A port of ``graspbalance_tpu`` (JAX), which stays the reference: each module
@@ -29,6 +30,9 @@ Layout:
             checkpoints and metric streams; the DSN's training step
   cli/      command lines (python -m graspbalance_tpu_torch.cli.<name>):
             train, train_seg, quality_gate, dsn_quality_gate, infer, eval_ap
+  parallel/ data-parallel training over torch.distributed ranks, and the
+            DRP backbone with each cloud's points split over ranks
+  utils/    parameter counts, bytes and norms
 """
 
 __version__ = "0.1.0"

@@ -14,6 +14,16 @@ bfloat16`` only the width head's MLPs); both are recorded in config.json.
 ``--backbone pointnet2`` trains the PointNet++ SSG backbone
 (models/backbone.py) in place of DRP. As in the JAX CLI, the scenes and the
 heads keep the default 12 angles and 4 depths.
+
+On S cards, data-parallel over S ranks (each its rows of the global batch
+``--batch_size``, which S must divide; the step is the global batch's, as
+the JAX CLI's mesh step is):
+
+    torchrun --nproc_per_node=S -m graspbalance_tpu_torch.cli.train --synthetic_steps 20 --max_epoch 1
+
+Each rank trains on ``cuda:LOCAL_RANK`` over NCCL (with ``--device cpu``
+on the CPU over gloo), n_data_shards is every rank, and only rank 0 writes
+the log_dir.
 """
 
 from __future__ import annotations
@@ -74,8 +84,22 @@ def config_from_args(args):
 
 def main(argv=None) -> None:
     """Parse ``argv`` (default the command line) and train; the run's
-    checkpoints and metric streams are in its ``--log_dir``."""
+    checkpoints and metric streams are in its ``--log_dir``. Under
+    torchrun, joins its process group first and leaves it at the end."""
     args = parse_args(argv)
+    import torch.distributed as dist
+
+    from graspbalance_tpu_torch.parallel.mesh import init_from_env
+
+    args.device, joined = init_from_env(args.device)
+    try:
+        _train(args)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _train(args) -> None:
     cfg = config_from_args(args)
 
     from graspbalance_tpu_torch.train.loop import train

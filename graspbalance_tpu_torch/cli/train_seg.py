@@ -16,6 +16,12 @@ the offset labels count ``max_objects + 1`` classes, so this CLI numbers
 each scene's objects 1..K first (``dense_instance_labels``). The JAX CLI
 passes the ids as they are: there ids past max_objects share one weight bin
 and one centroid. Synthetic scenes number their objects 1..K already.
+
+On S cards the DSN trains data-parallel over every rank, as the JAX CLI
+trains over every device's mesh (each rank its rows of ``--batch_size``,
+which S must divide; rank 0 writes the log_dir):
+
+    torchrun --nproc_per_node=S -m graspbalance_tpu_torch.cli.train_seg --synthetic_steps 50
 """
 
 from __future__ import annotations
@@ -53,18 +59,39 @@ def parse_args(argv=None):
 
 def main(argv=None):
     """Parse ``argv`` (default the command line) and train; returns the
-    final train_step.TrainState (the DSN, its optimizer and schedule)."""
+    final train_step.TrainState (the DSN, its optimizer and schedule).
+    Under torchrun, joins its process group first and leaves it at the
+    end."""
     args = parse_args(argv)
+    import torch.distributed as dist
+
+    from graspbalance_tpu_torch.parallel.mesh import init_from_env
+
+    args.device, joined = init_from_env(args.device)
+    try:
+        return _train(args)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _train(args):
     import numpy as np
+    import torch.distributed as dist
 
     from graspbalance_tpu_torch.eval.pipeline import resolve_device
     from graspbalance_tpu_torch.models.dsn import DSN
+    from graspbalance_tpu_torch.parallel.mesh import axis_size, is_lead, make_mesh, replicate_, shard_rows
     from graspbalance_tpu_torch.train.checkpoints import CheckpointManager
-    from graspbalance_tpu_torch.train.metrics import MetricAggregator, MetricLogger
+    from graspbalance_tpu_torch.train.metrics import MetricAggregator, MetricLogger, NullLogger
     from graspbalance_tpu_torch.train.seg_step import init_dsn, make_seg_optimizer, seg_train_step
     from graspbalance_tpu_torch.train.train_step import TrainState
 
     device = resolve_device(args.device)
+    mesh = make_mesh(device_type=device.type) if dist.is_initialized() else None
+    shards = axis_size(mesh, "data")
+    if args.batch_size % shards:
+        raise ValueError(f"batch_size={args.batch_size} does not split over {shards} data ranks")
     if args.dataset_root:
         from graspbalance_tpu_torch.data.dataset import make_dataloaders
         from graspbalance_tpu_torch.train.config import Config, DataConfig
@@ -82,11 +109,12 @@ def main(argv=None):
             for i in range(steps):
                 yield make_batch(epoch * steps + i, args.batch_size, scene)
 
-    model = init_dsn(DSN().to(device), 0)
+    model = replicate_(init_dsn(DSN().to(device), 0), mesh)
     optimizer, scheduler = make_seg_optimizer(model, args.max_epoch * steps, args.learning_rate)
     state = TrainState(model, optimizer, scheduler)
-    logger = MetricLogger(args.log_dir, "train")
-    ckpt = CheckpointManager(os.path.join(args.log_dir, "checkpoints"))
+    lead = is_lead()
+    logger = MetricLogger(args.log_dir, "train") if lead else NullLogger()
+    ckpt = CheckpointManager(os.path.join(args.log_dir, "checkpoints")) if lead else None
     try:
         for epoch in range(args.max_epoch):
             agg = MetricAggregator()
@@ -95,12 +123,14 @@ def main(argv=None):
                 instance = np.asarray(batch["instance_label"]).astype(np.int32)
                 if args.dataset_root:
                     instance = dense_instance_labels(instance)
-                metrics = seg_train_step(model, optimizer, scheduler, cloud, instance, args.max_objects)
+                metrics = seg_train_step(model, optimizer, scheduler, shard_rows(cloud, mesh),
+                                         shard_rows(instance, mesh), args.max_objects, mesh=mesh)
                 agg.update(metrics)
                 state.step += 1
                 if state.step % 10 == 0:
                     logger.log(state.step, agg.flush())
-            ckpt.save(state.step, state, extra={"epoch": epoch + 1})
+            if lead:
+                ckpt.save(state.step, state, extra={"epoch": epoch + 1})
     finally:
         logger.close()
     return state

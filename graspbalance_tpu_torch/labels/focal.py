@@ -1,11 +1,15 @@
 """Focal losses (port of graspbalance_tpu/labels/focal.py). The reference
 defines them but its live loss does not use them; they are here for
-experiments that replace the graspable cross-entropy."""
+experiments that replace the graspable cross-entropy. Their means divide
+by the count over every rank under data-parallel training
+(``parallel.mesh.global_sum``, ``global_mean``), as labels/losses.py's do."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from graspbalance_tpu_torch.parallel.mesh import global_mean, global_sum
 
 
 def focal_loss(
@@ -30,9 +34,9 @@ def focal_loss(
     if valid is not None:
         loss = loss * valid
         if reduction == "mean":
-            return loss.sum() / (valid.sum() + 1e-6)
+            return loss.sum() / (global_sum(valid.sum()) + 1e-6)
     if reduction == "mean":
-        return loss.mean()
+        return global_mean(loss)
     if reduction == "sum":
         return loss.sum()
     return loss
@@ -56,4 +60,4 @@ def binary_focal_loss(
     neg_w = (neg * torch.pow(prob, gamma)).detach()
     pos_loss = -pos_w * torch.log(prob)
     neg_loss = -alpha * neg_w * F.logsigmoid(-logits)
-    return (pos_loss + neg_loss).mean()
+    return global_mean(pos_loss + neg_loss)

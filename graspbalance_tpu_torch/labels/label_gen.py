@@ -36,6 +36,7 @@ from graspbalance_tpu_torch.labels.geometry import (
     batch_viewpoint_params_to_matrix,
     generate_grasp_views,
 )
+from graspbalance_tpu_torch.parallel.mesh import global_max
 
 
 def _sq_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -93,7 +94,7 @@ def process_grasp_labels(seed_xyz: torch.Tensor, labels: dict) -> dict:
     raw = labels["grasp_labels"][bs, ps, svi]  # (B, Ns, V, A, D)
 
     # 4.-5. log-rescale by the batch-global maximum; per-view maxima
-    u_max = raw.amax()
+    u_max = global_max(raw.amax())  # over every rank's rows under data-parallel training
     mask = (raw > 0) & (out["batch_grasp_width"] <= GRASP_MAX_WIDTH)
     rescaled = torch.where(mask, torch.log(u_max / torch.clamp(raw, min=1e-12)), 0.0)
     out["batch_grasp_label"] = rescaled

@@ -6,6 +6,12 @@ total = graspable CE + view MSE + 0.2 * (score huber + angle CE + width huber
 graspability and reweighted by the inverse-log object-scale prior. Masked
 means are nan-free (0 on an empty mask), as in the JAX package. The metric
 keys are the JAX package's.
+
+Under ``parallel.mesh.data_parallel`` (data-parallel training) every
+denominator, masked or a plain mean's element count, is the sum over the
+ranks (``global_sum``, ``global_mean``): each rank's loss and metrics are
+then its share of the global-batch value, and the shares add up to it.
+Outside it both are the one-process denominators.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from graspbalance_tpu_torch.labels.geometry import (
     THRESH_GOOD,
 )
 from graspbalance_tpu_torch.labels.scale_prior import SCALE_BIN_EDGES, scale_prior_weights
+from graspbalance_tpu_torch.parallel.mesh import global_mean, global_sum
 
 
 def huber_loss(error: torch.Tensor, delta: float = 1.0) -> torch.Tensor:
@@ -36,7 +43,7 @@ def _softmax_ce(logits: torch.Tensor, labels: torch.Tensor, dim: int = -1) -> to
 
 def _masked_mean(values: torch.Tensor, mask: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     m = mask.float()
-    return (values * m).sum() / (m.sum() + eps)
+    return (values * m).sum() / (global_sum(m.sum()) + eps)
 
 
 def reweight_from_target_width(target_w: torch.Tensor) -> torch.Tensor:
@@ -64,12 +71,12 @@ def compute_robust_graspable_loss(objectness_score, per_view, seed_objectness):
     """CE objectness loss and acc/prec/recall: a seed is graspable iff it
     lies on an object and more than 10 views have a label above THRESH_BAD."""
     graspable = ((per_view > THRESH_BAD).sum(dim=-1) > 10).long() * seed_objectness
-    loss = _softmax_ce(objectness_score, graspable).mean()
+    loss = global_mean(_softmax_ce(objectness_score, graspable))
     pred = objectness_score.argmax(dim=-1)
     correct = (pred == graspable).float()
     metrics = {
         "loss/stage1_graspable_loss": loss,
-        "stage1_graspable_acc": correct.mean(),
+        "stage1_graspable_acc": global_mean(correct),
         "stage1_graspable_prec": _masked_mean(correct, pred == 1),
         "stage1_graspable_recall": _masked_mean(correct, graspable == 1),
     }
@@ -83,7 +90,7 @@ def compute_weighted_view_loss(view_score, view_label, graspable, weight_mask):
     loss_mask = objectness_mask.float() * weight_mask.unsqueeze(-1)
     sq = (view_score - view_label) ** 2
     v = view_score.shape[-1]
-    loss = (sq * loss_mask).sum() / (loss_mask.sum() * v + 1e-6)
+    loss = (sq * loss_mask).sum() / (global_sum(loss_mask.sum()) * v + 1e-6)
     pos_count = ((view_score >= THRESH_GOOD) & objectness_mask).sum()
     return loss, {"loss/stage1_view_loss": loss, "stage1_pos_view_pred_count": pos_count}
 
@@ -106,10 +113,10 @@ def compute_weighted_grasp_loss(ep: dict, seed_objectness, weight_mask):
     obj_mask = (seed_objectness > 0).unsqueeze(-1)
     loss_mask = (obj_mask & (target_labels > THRESH_BAD)).float() * weight_mask.unsqueeze(-1)
     depth_loss_mask = loss_mask.amax(dim=2, keepdim=True).expand_as(loss_mask)
-    denom = loss_mask.sum() + 1e-6
+    denom = global_sum(loss_mask.sum()) + 1e-6
 
     score_el = huber_loss(at_target(ep["grasp_score_pred"]) - target_labels)
-    score_loss = (score_el * depth_loss_mask).sum() / (depth_loss_mask.sum() + 1e-6)
+    score_loss = (score_el * depth_loss_mask).sum() / (global_sum(depth_loss_mask.sum()) + 1e-6)
 
     angle_logits = ep["grasp_angle_cls_pred"]
     angle_loss = (_softmax_ce(angle_logits, target_cls, dim=2) * loss_mask).sum() / denom

@@ -6,12 +6,18 @@ population in its batch item, so that small objects count as much as large
 ones. The counts are a per-item bincount of ``num_classes`` bins: a label
 at or past ``num_classes`` adds to no bin and reads the last one, as the
 JAX package's ``jnp.bincount(length=num_classes)`` and clamped gather do.
+
+The counts are per batch item, so they stay on the item's rank under
+data-parallel training; the weighted means' denominators sum over the ranks
+(``parallel.mesh.global_sum``), as labels/losses.py's do.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from graspbalance_tpu_torch.parallel.mesh import global_sum
 
 
 def inverse_frequency_weights(labels: torch.Tensor, num_classes: int, *, ignore_zero: bool = False) -> torch.Tensor:
@@ -33,7 +39,7 @@ def ce_loss_weighted(logits: torch.Tensor, target: torch.Tensor, num_classes: in
     logp = F.log_softmax(logits, dim=-1)
     ce = -logp.gather(-1, target.long().unsqueeze(-1))[..., 0]
     w = inverse_frequency_weights(target, num_classes)
-    return torch.sum(ce * w) / torch.sum(w)
+    return torch.sum(ce * w) / global_sum(torch.sum(w))
 
 
 def smooth_l1(x: torch.Tensor) -> torch.Tensor:
@@ -49,7 +55,7 @@ def smooth_l1_loss_weighted(
     (B, N) int instance ids."""
     per_point = torch.sum(smooth_l1(pred - target), dim=-1)
     w = inverse_frequency_weights(mask_labels, num_classes)
-    return torch.sum(per_point * w) / torch.sum(w)
+    return torch.sum(per_point * w) / global_sum(torch.sum(w))
 
 
 def bce_with_logits_weighted(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -57,7 +63,7 @@ def bce_with_logits_weighted(logits: torch.Tensor, target: torch.Tensor) -> torc
     inverse frequency of each target value."""
     bce = torch.clamp(logits, min=0) - logits * target + torch.log1p(torch.exp(-torch.abs(logits)))
     w = inverse_frequency_weights(target.int(), 2)
-    return torch.sum(bce * w) / torch.sum(w)
+    return torch.sum(bce * w) / global_sum(torch.sum(w))
 
 
 def cluster_loss_weighted(

@@ -44,7 +44,15 @@ class LocalAggregation(nn.Module):
     the BN-folded block and the reduction in one kernel (ops/mlpmax.py). It
     runs the block on N x K rows, where the lifted form runs it on N. In
     bfloat16 (``dtype``) the coordinates are cast to the features' dtype
-    where they join them, and the block runs in ``dtype``."""
+    where they join them, and the block runs in ``dtype``.
+
+    The chunked-centers form (the point-axis-sharded path,
+    parallel/backbone.py): ``centers`` (B, M, 3) and ``center_feats``
+    (B, M, C) restrict the output rows to those centers, while ``xyz`` and
+    ``feats`` stay the whole support; ``query_idx`` (B, M, nsample) replaces
+    the module's own query. Every operation is row-local over the centers,
+    so a chunked call gives the matching rows of the full call (each row's
+    products may round differently with the number of rows: within 1e-6)."""
 
     def __init__(self, channels: int, radius: float, nsample: int, *, grouper: str = "ballquery",
                  feature_type: str = "dp_fj", reduction: str = "max", query_order: str = "index",
@@ -71,15 +79,21 @@ class LocalAggregation(nn.Module):
             return out.amax(dim=2)
         return out.mean(dim=2) if self.reduction == "mean" else out.sum(dim=2)
 
-    def forward(self, xyz: torch.Tensor, feats: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
+    def forward(self, xyz: torch.Tensor, feats: torch.Tensor, *, centers: torch.Tensor | None = None,
+                center_feats: torch.Tensor | None = None, query_idx: torch.Tensor | None = None,
+                plain: bool = False) -> torch.Tensor:
         """``plain`` runs the kernels (kNN, the fused branch's) as their
-        plain versions."""
-        if self.grouper == "knn":
-            _, idx = (knn_plain if plain else ops.knn)(xyz, xyz, self.nsample)
-        else:
-            idx = ops.ball_query(xyz, xyz, self.radius, self.nsample, order=self.query_order)
+        plain versions; ``centers``, ``center_feats`` and ``query_idx``
+        give the chunked-centers form (see the class docstring)."""
+        cx = xyz if centers is None else centers
+        cf = feats if center_feats is None else center_feats
+        idx = query_idx
+        if idx is None and self.grouper == "knn":
+            _, idx = (knn_plain if plain else ops.knn)(xyz, cx, self.nsample)
+        elif idx is None:
+            idx = ops.ball_query(xyz, cx, self.radius, self.nsample, order=self.query_order)
         if self.feature_type == "dp_fj" and fused_eval_ok(self, feats):
-            dp = ops.group_points(xyz, idx) - xyz.unsqueeze(2)
+            dp = ops.group_points(xyz, idx) - cx.unsqueeze(2)
             fj = ops.group_points(feats, idx)
             w0, b0 = self.conv.fold()
             fused = mlpmax.mlp_max_fused_plain if plain else mlpmax.mlp_max_fused
@@ -87,16 +101,16 @@ class LocalAggregation(nn.Module):
         if self.feature_type == "dp_fj":
             xyz_f = xyz.to(feats.dtype)
             e = self.conv(torch.cat([xyz_f, feats], dim=-1), stage="dense")
-            cw = self.conv(torch.cat([xyz_f, torch.zeros_like(feats)], dim=-1), stage="dense")
+            cw = self.conv(torch.cat([cx.to(feats.dtype), torch.zeros_like(cf)], dim=-1), stage="dense")
             pre = ops.group_points(e, idx) - cw.unsqueeze(2)
             return self._reduce(self.conv(pre, stage="post"))
         fj = ops.group_points(feats, idx)
-        dp = (ops.group_points(xyz, idx) - xyz.unsqueeze(2)).to(fj.dtype)
-        df = fj - feats.unsqueeze(2)
+        dp = (ops.group_points(xyz, idx) - cx.unsqueeze(2)).to(fj.dtype)
+        df = fj - cf.unsqueeze(2)
         if self.feature_type == "dp_fj_df":
             grouped = torch.cat([dp, fj, df], dim=-1)
         elif self.feature_type == "pi_dp_fj_df":
-            pi = xyz.unsqueeze(2).to(fj.dtype).expand(dp.shape)
+            pi = cx.unsqueeze(2).to(fj.dtype).expand(dp.shape)
             grouped = torch.cat([pi, dp, fj, df], dim=-1)
         else:  # dp_df
             grouped = torch.cat([dp, df], dim=-1)
@@ -108,7 +122,9 @@ EXPANSION = 4  # InvResMLP's pointwise width multiple
 
 class InvResMLP(nn.Module):
     """LocalAggregation -> [C -> 4C (BN+ReLU) -> C (BN)] -> +residual -> ReLU,
-    in ``dtype``."""
+    in ``dtype``. ``centers``, ``center_feats`` and ``query_idx`` give
+    LocalAggregation's chunked-centers form: the block's rows at those
+    centers (the residual is ``center_feats``)."""
 
     def __init__(self, channels: int, radius: float, nsample: int, *, query_order: str = "index",
                  fused_min_nsample: int | None = None, dtype=torch.float32):
@@ -118,9 +134,12 @@ class InvResMLP(nn.Module):
         self.pw1 = MLPBlock(channels, channels * EXPANSION, dtype=dtype)
         self.pw2 = MLPBlock(channels * EXPANSION, channels, act=False, dtype=dtype)
 
-    def forward(self, xyz: torch.Tensor, feats: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
-        f = self.pw2(self.pw1(self.local_agg(xyz, feats, plain=plain)))
-        return torch.relu(f + feats)
+    def forward(self, xyz: torch.Tensor, feats: torch.Tensor, *, centers: torch.Tensor | None = None,
+                center_feats: torch.Tensor | None = None, query_idx: torch.Tensor | None = None,
+                plain: bool = False) -> torch.Tensor:
+        f = self.local_agg(xyz, feats, centers=centers, center_feats=center_feats, query_idx=query_idx, plain=plain)
+        f = self.pw2(self.pw1(f))
+        return torch.relu(f + (feats if center_feats is None else center_feats))
 
 
 # (npoint, sa_radius, sa_nsample, mlp, n_blocks, block_radius, block_nsample)

@@ -25,6 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from graspbalance_tpu_torch.parallel.mesh import all_reduce_sum, data_group
+
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -52,6 +54,10 @@ class BatchNorm(nn.Module):
     updates the running statistics in the torch-momentum convention,
     ``running = (1 - m) * running + m * batch``, with the unbiased variance
     n / (n - 1) * var; ``momentum`` is ``m``, set by the training step.
+    Within ``parallel.mesh.data_parallel`` the batch statistics and n span
+    every rank of its group (``_group_statistics``), as the JAX package's
+    mesh step computes them over the global batch; outside it, or in a
+    group of one rank, nothing changes.
     The statistics are in the buffers' dtype (float32) whatever ``dtype``:
     a bfloat16 input is read as float32 for them, and the normalisation and
     the affine run in bfloat16 on the statistics and parameters cast to
@@ -71,22 +77,45 @@ class BatchNorm(nn.Module):
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
-            axes = tuple(range(x.ndim - 1))
             xf = x.to(self.running_mean.dtype)
-            mean = xf.mean(dim=axes)
-            var = (xf * xf).mean(dim=axes) - mean * mean
-            n = x.numel() // x.shape[-1]
+            group = data_group()
+            if group is None:
+                axes = tuple(range(x.ndim - 1))
+                mean = xf.mean(dim=axes)
+                var = (xf * xf).mean(dim=axes) - mean * mean
+                n = x.numel() // x.shape[-1]
+                unbias = n / max(n - 1, 1)
+            else:
+                mean, var, unbias = self._group_statistics(xf, group)
             m = np.float32(self.momentum)  # both factors rounded to f32, as in JAX
             keep, m = float(np.float32(1.0) - m), float(m)
             with torch.no_grad():
                 self.running_mean.copy_(keep * self.running_mean + m * mean)
-                self.running_var.copy_(keep * self.running_var + m * (var * (n / max(n - 1, 1))))
+                self.running_var.copy_(keep * self.running_var + m * (var * unbias))
         if self.dtype == torch.float32:
             inv = self.weight * (1.0 / torch.sqrt(var + self.eps))
             return (x.to(mean.dtype) - mean) * inv + self.bias
         d = self.dtype
         inv = self.weight.to(d) * (1.0 / torch.sqrt(var + self.eps)).to(d)
         return (x.to(d) - mean.to(d)) * inv + self.bias.to(d)
+
+    @staticmethod
+    def _group_statistics(xf: torch.Tensor, group):
+        """The batch statistics over every rank of ``group``: the sums of x
+        and x^2 and the row count, summed over the ranks in float64 (the
+        backward sums the cotangents over them too), give mean(x) and
+        mean(x^2) in float32 and the variance mean(x^2) - mean^2 as one
+        process forms it. Returns (mean, var, the unbiased factor
+        n / (n - 1) of the global row count n)."""
+        c = xf.shape[-1]
+        rows = xf.reshape(-1, c)
+        count = torch.full((1,), rows.shape[0], dtype=torch.float64, device=rows.device)
+        local = torch.cat([rows.sum(dim=0).double(), (rows * rows).sum(dim=0).double(), count])
+        total = all_reduce_sum(local, group)
+        n = total[-1]
+        mean = (total[:c] / n).to(xf.dtype)
+        var = (total[c:2 * c] / n).to(xf.dtype) - mean * mean
+        return mean, var, (n / torch.clamp(n - 1, min=1)).to(xf.dtype)
 
     def fold(self, dense_weight: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """Fold this BN into the preceding bias-free dense layer:

@@ -83,12 +83,18 @@ class SetAbstraction(nn.Module):
         self.dtype = dtype
         self.mlp = SharedMLP(3 + in_features, mlp, dtype=dtype)
 
-    def forward(self, xyz: torch.Tensor, features: torch.Tensor | None, inds: torch.Tensor, *, plain: bool = False):
-        """xyz (B, N, 3); features (B, N, C) or None; inds (B, npoint).
+    def forward(self, xyz: torch.Tensor, features: torch.Tensor | None, inds: torch.Tensor, *,
+                query_idx: torch.Tensor | None = None, plain: bool = False):
+        """xyz (B, N, 3); features (B, N, C) or None; inds (B, npoint);
+        query_idx optional (B, npoint, nsample) ball-query indices computed
+        elsewhere (the point-axis-sharded path's exact sharded query,
+        parallel/stage1.py), in place of the module's own query.
         ``plain`` runs the fused branch's kernel as its plain version.
         Returns (new_xyz (B, npoint, 3), new_features (B, npoint, C_out))."""
         new_xyz = ops.gather_points(xyz, inds)
-        idx = ops.ball_query(xyz, new_xyz, self.radius, self.nsample, order=self.query_order)
+        idx = query_idx
+        if idx is None:
+            idx = ops.ball_query(xyz, new_xyz, self.radius, self.nsample, order=self.query_order)
         if fused_eval_ok(self, xyz):
             (w0, b0), *rest = self.mlp.fold()
             offsets = ops.group_points(xyz, idx) - new_xyz.unsqueeze(2)

@@ -8,9 +8,10 @@ Left out are the JAX package's four trace-time knobs of its TPU compiler
 on the card corresponds to them. ``config_from_dict`` ignores them, as it
 ignores every unknown key, so a ``config.json`` written by the JAX package
 loads here. ``train_step.check_supported`` refuses what the port cannot
-honour: ``n_data_shards`` > 1 (ROADMAP Queue 1 item 7), ``query_order``
-``'nearest_approx'`` (left behind: the TPU's approximate top-k) and
-``label_impl='reduced'``, and the values the JAX package itself rejects.
+honour: ``n_data_shards`` other than the process group's size or a batch it
+does not divide, ``query_order`` ``'nearest_approx'`` (left behind: the
+TPU's approximate top-k) and ``label_impl='reduced'``, and the values the
+JAX package itself rejects.
 """
 
 from __future__ import annotations
@@ -76,7 +77,7 @@ class TrainConfig:
     log_every: int = 10
     checkpoint_every_epochs: int = 1
     seed: int = 0  # the weights' initialisation (train_step.create_train_state)
-    n_data_shards: int | None = None  # one device: None or 1 (more is ROADMAP item 7)
+    n_data_shards: int | None = None  # data-parallel ranks (None: every rank of the process group)
     # stop the epoch loop after this many epochs without changing max_epoch
     # (the OneCycle schedule keeps its length): a preemption at an epoch
     # boundary, for resume checks

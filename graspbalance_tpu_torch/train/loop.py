@@ -10,6 +10,15 @@ loss, and logs its own telemetry. A run resumes from the latest checkpoint
 in ``log_dir/checkpoints``, and refuses to when its model config differs
 from the stored ``config.json``.
 
+In a process group (``torchrun``, or ``parallel.ranks.run_ranks``) the loop
+trains data-parallel over ``cfg.train.n_data_shards`` ranks (None: every
+rank), as the JAX loop trains over its 'data' mesh: every rank draws the
+same global batches from ``train_batches`` and uploads only its rows (the
+transfer cache is keyed on the source array, so the static labels still
+upload once), steps with the mesh (train_step.py), and computes the same
+global metrics. Only rank 0 writes: ``config.json``, the metric streams,
+the checkpoints, the profile. Every rank resumes from the checkpoints.
+
 Streams in ``log_dir`` (JSONL, and the text log ``log_train.txt``):
   train_metrics.jsonl  each window's mean metrics (``time/step_ms`` is the
                        step's dispatch time on the host clock) and the
@@ -38,16 +47,20 @@ from typing import Callable, Iterable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from graspbalance_tpu_torch.eval.pipeline import resolve_device
+from graspbalance_tpu_torch.parallel.mesh import is_lead, make_mesh, replicate_, shard_rows
 from graspbalance_tpu_torch.train.checkpoints import CheckpointManager, load_config
 from graspbalance_tpu_torch.train.config import Config
-from graspbalance_tpu_torch.train.metrics import MetricAggregator, MetricLogger, profiler_trace, step_timer
+from graspbalance_tpu_torch.train.metrics import MetricAggregator, MetricLogger, NullLogger, profiler_trace, step_timer
 from graspbalance_tpu_torch.train.train_step import check_supported, create_train_state, eval_step, train_step
 
 
 class TransferCache:
     """Host -> device uploads keyed by the host array's identity, per key.
+    With a ``mesh`` only this rank's rows of each array are uploaded
+    (``parallel.mesh.shard_rows``), still keyed by the whole array.
 
     A source that hands the same array object again (the synthetic static
     labels, or a loader reusing its buffers) gets one upload; an array that
@@ -58,8 +71,9 @@ class TransferCache:
     is uploaded once and expanded on the device. ``uploads`` counts the
     uploads per key and ``uploaded_bytes`` their bytes."""
 
-    def __init__(self, device):
+    def __init__(self, device, mesh=None):
         self.device = torch.device(device)
+        self.mesh = mesh
         self._host: dict = {}
         self._dev: dict = {}
         self.uploads: collections.Counter = collections.Counter()
@@ -70,7 +84,7 @@ class TransferCache:
         for k, a in batch.items():
             if self._host.get(k) is not a:
                 self._host[k] = a
-                self._dev[k] = self._upload(a)
+                self._dev[k] = self._upload(shard_rows(a, self.mesh))
                 self.uploads[k] += 1
             out[k] = self._dev[k]
         return out
@@ -163,9 +177,12 @@ def train(
     ``steps_per_epoch`` defaults to the length of epoch 0's stream and
     sets the OneCycle schedule's length (a longer stream holds its final
     rate). Returns the train_step.TrainState. Raises, before it writes
-    anything, on a config the port cannot honour (``check_supported``)."""
+    anything, on a config the port cannot honour (``check_supported``).
+    In a process group, ``device`` is this rank's."""
     check_supported(cfg)
     device = resolve_device(device)
+    mesh = make_mesh(cfg.train.n_data_shards, device_type=device.type) if dist.is_initialized() else None
+    lead = is_lead()
     sample = next(iter(train_batches(0)), None)
     if sample is None:
         raise ValueError("empty training stream")
@@ -175,16 +192,16 @@ def train(
     t = cfg.train
     ckpt_dir = os.path.join(t.log_dir, "checkpoints")
     ckpt = CheckpointManager(ckpt_dir)
-    if not _check_resume(ckpt, ckpt_dir, cfg):
+    if not _check_resume(ckpt, ckpt_dir, cfg) and lead:
         ckpt.save_config(cfg)
 
     state = create_train_state(cfg, steps_per_epoch, sample, device=device)
     state, extra = ckpt.restore(state)
+    replicate_(state.model, mesh)
     start_epoch = int(extra["epoch"]) if extra else state.step // steps_per_epoch
-    transfers = TransferCache(device)
-    logger = MetricLogger(t.log_dir, "train")
-    eval_logger = MetricLogger(t.log_dir, "test")
-    loop_logger = MetricLogger(t.log_dir, "loop")
+    transfers = TransferCache(device, mesh)
+    logger, eval_logger, loop_logger = (MetricLogger(t.log_dir, name) if lead else NullLogger()
+                                        for name in ("train", "test", "loop"))
     profile = contextlib.ExitStack()
     try:
         for epoch in range(start_epoch, t.max_epoch):
@@ -193,14 +210,15 @@ def train(
             batches = Prefetch(train_batches(epoch))
             steps = 0
             for i, batch in enumerate(batches):
-                if t.profile_steps > 0 and epoch == start_epoch:  # steps [start, start + n) of the first epoch
+                if t.profile_steps > 0 and epoch == start_epoch and lead:  # steps [start, start + n) of the first epoch
                     if i == t.profile_start:
                         profile.enter_context(profiler_trace(t.log_dir, enabled=True))
                     elif i == t.profile_start + t.profile_steps:
                         profile.close()
                 batch = transfers.put(batch)
                 with step_timer(metrics := {}):
-                    metrics_dev = train_step(state.model, state.optimizer, state.scheduler, batch, epoch, cfg)
+                    metrics_dev = train_step(state.model, state.optimizer, state.scheduler, batch, epoch, cfg,
+                                             mesh=mesh)
                 state.step += 1
                 steps += 1
                 metrics.update(metrics_dev)
@@ -220,17 +238,18 @@ def train(
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             wall = time.perf_counter() - t_epoch
-            print(f"epoch {epoch} done in {wall:.1f}s")
+            if lead:
+                print(f"epoch {epoch} done in {wall:.1f}s")
             record = {"loop/epoch": epoch, "loop/ms_per_step": wall * 1e3 / max(steps, 1),
                       "loop/prefetch_wait_share": batches.wait_s / wall}
 
             if eval_batches is not None:
                 eagg = MetricAggregator()
                 for batch in eval_batches():
-                    eagg.update(eval_step(state.model, transfers.put(batch), cfg))
+                    eagg.update(eval_step(state.model, transfers.put(batch), cfg, mesh=mesh))
                 eval_logger.log(state.step, eagg.flush())
 
-            if (epoch + 1) % t.checkpoint_every_epochs == 0:
+            if (epoch + 1) % t.checkpoint_every_epochs == 0 and lead:
                 t_save = time.perf_counter()
                 path = ckpt.save(state.step, state, extra={"epoch": epoch + 1},
                                  metrics={"loss": epoch_loss} if epoch_loss is not None else None)
@@ -247,4 +266,8 @@ def train(
         logger.close()
         eval_logger.close()
         loop_logger.close()
+    if mesh is not None:
+        # no rank returns before rank 0's last checkpoint is on disk: a run
+        # resumed in the same process group must find it on every rank
+        dist.barrier()
     return state

@@ -42,6 +42,17 @@ class MetricAggregator:
         return out
 
 
+class NullLogger:
+    """A MetricLogger that writes nothing (a data-parallel rank other than
+    0)."""
+
+    def log(self, step: int, metrics: dict, echo: bool = True):
+        pass
+
+    def close(self):
+        pass
+
+
 class MetricLogger:
     """JSONL and text sinks in ``log_dir`` (and TensorBoard where it
     imports); close() closes them."""

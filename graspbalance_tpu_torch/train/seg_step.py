@@ -11,6 +11,12 @@ cosine pieces between 0, int(0.3 * T) and T, computed in float32. At T = 10
 optax gives 4e-5, 2.8e-4, 7.6e-4, 1e-3 at step 3; torch's OneCycleLR 4e-5,
 5.2e-4, 1e-3 at step 2. ``CosineOneCycle`` computes optax's rates in
 optax's order and precision.
+
+Data parallelism as train/train_step.py has it: with a ``mesh``,
+``seg_train_step`` takes this rank's rows, runs the forward and the loss
+within ``data_parallel`` over 'data' (BatchNorm's statistics and the
+weighted losses' denominators over the global batch), and sums the
+gradients and the metrics over the ranks.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch
 from graspbalance_tpu_torch.labels.seg_losses import get_seg_loss
 from graspbalance_tpu_torch.models.dsn import DSN, compute_center_offset_labels
 from graspbalance_tpu_torch.nn.layers import init_flax_defaults_
+from graspbalance_tpu_torch.parallel.mesh import all_reduce_grads_, all_reduce_metrics, axis_group, data_parallel
 from graspbalance_tpu_torch.train.train_step import set_bn_momentum, set_matmul_precision
 
 DSN_BN_MOMENTUM = 0.1  # the DSN's BatchNorm momentum, constant (the torch convention)
@@ -102,18 +109,24 @@ def seg_forward_loss(model: DSN, cloud: torch.Tensor, instance: torch.Tensor, ma
 
 
 def seg_train_step(model: DSN, optimizer, scheduler, cloud, instance, max_objects: int, *,
-                   plain: bool = False) -> dict:
+                   plain: bool = False, mesh=None) -> dict:
     """One step on cloud (B, N, 3) and instance (B, N) (numpy arrays or
-    tensors, moved to the model's device). Returns the metrics as 0-dim
+    tensors, moved to the model's device; with ``mesh`` this rank's rows,
+    and the step is the global batch's). Returns the metrics as 0-dim
     tensors on the device (no host sync); the parameters' .grad keep this
-    step's gradients."""
+    step's gradients (summed over the ranks)."""
     set_matmul_precision()
     device = next(model.parameters()).device
     cloud = torch.as_tensor(cloud, device=device)[..., :3]
     instance = torch.as_tensor(instance, device=device)
     optimizer.zero_grad(set_to_none=True)
-    loss, metrics = seg_forward_loss(model, cloud, instance, max_objects, plain=plain)
-    loss.backward()
+    group = axis_group(mesh, "data")
+    with data_parallel(group):
+        loss, metrics = seg_forward_loss(model, cloud, instance, max_objects, plain=plain)
+        loss.backward()
+    if group is not None:
+        all_reduce_grads_(model, group)
+        metrics = all_reduce_metrics(metrics, group)
     optimizer.step()
     scheduler.step()
     return {k: v.detach() for k, v in metrics.items()}

@@ -19,6 +19,19 @@ the heads' outputs, label matching, the loss and Adam in float32). TF32 is
 off for float32 matrix products, and cuBLAS keeps float32 accumulation for
 bfloat16 ones (``allow_bf16_reduced_precision_reduction=False``), as the
 TPU accumulates; neither setting touches the other dtype's products.
+
+Data parallelism (``cfg.train.n_data_shards`` ranks, the JAX package's
+'data' mesh axis): ``train_step`` and ``eval_step`` take the
+``parallel.mesh.make_mesh`` mesh and this rank's rows of the batch
+(``parallel.mesh.shard_batch``). The forward and the loss run within
+``data_parallel`` over the mesh's 'data' group: BatchNorm's batch
+statistics and every loss denominator span the global batch, so that each
+rank's loss is its share of the global-batch loss. The step then sums the
+gradients over 'data' (a sum: the shares add up to the loss) and the
+metrics, and every rank takes the same Adam step. The parameters start
+equal on every rank (``parallel.mesh.replicate_``), and the step draws
+nothing at random, so they stay equal. A mesh of one rank computes what
+the one-process step computes, bit for bit.
 """
 
 from __future__ import annotations
@@ -26,27 +39,41 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from graspbalance_tpu_torch.eval.pipeline import resolve_device
 from graspbalance_tpu_torch.labels.analytic import expand_batch_labels
 from graspbalance_tpu_torch.labels.losses import get_loss
 from graspbalance_tpu_torch.models.graspbalance import BACKBONES, GraspBalance
 from graspbalance_tpu_torch.ops.query import ORDERS
+from graspbalance_tpu_torch.parallel.mesh import (
+    all_reduce_grads_,
+    all_reduce_metrics,
+    axis_group,
+    data_parallel,
+)
 from graspbalance_tpu_torch.nn.layers import DTYPES, BatchNorm, bn_momentum_schedule, compute_dtype, init_flax_defaults_
 from graspbalance_tpu_torch.train.config import Config
 
 
-def check_supported(cfg: Config) -> None:
+def check_supported(cfg: Config, world: int | None = None) -> None:
     """Raise ValueError on every value of ``cfg`` the port cannot honour:
-    ``n_data_shards`` > 1 (data parallelism, ROADMAP Queue 1 item 7),
-    ``query_order='nearest_approx'`` (the TPU's approximate top-k, left
-    behind), ``label_impl='reduced'`` (the measurement that left it out),
-    and the values the JAX package itself rejects: an unknown backbone,
-    query order or compute dtype, and an ``hmax_list`` without
-    ``num_depth`` entries."""
+    ``n_data_shards`` other than the ``world`` size (by default the process
+    group's, 1 without one: ``n_data_shards=2`` needs a 2-rank group) or a
+    ``batch_size`` it does not divide, ``query_order='nearest_approx'``
+    (the TPU's approximate top-k, left behind), ``label_impl='reduced'``
+    (the measurement that left it out), and the values the JAX package
+    itself rejects: an unknown backbone, query order or compute dtype, and
+    an ``hmax_list`` without ``num_depth`` entries."""
     m = cfg.model
-    if cfg.train.n_data_shards not in (None, 1):
-        raise ValueError(f"the port cannot honour n_data_shards={cfg.train.n_data_shards!r}: ROADMAP Queue 1 item 7")
+    if world is None:
+        world = dist.get_world_size() if dist.is_initialized() else 1
+    shards = world if cfg.train.n_data_shards is None else cfg.train.n_data_shards
+    if shards != world:
+        raise ValueError(f"n_data_shards={cfg.train.n_data_shards!r} needs a process group of {shards} ranks; "
+                         f"this one has {world} (torchrun --nproc_per_node={shards})")
+    if cfg.data.batch_size % shards:
+        raise ValueError(f"batch_size={cfg.data.batch_size} does not split over n_data_shards={shards} ranks")
     if m.backbone not in BACKBONES:
         raise ValueError(f"backbone={m.backbone!r}: one of {sorted(BACKBONES)}")
     if m.query_order not in ORDERS:
@@ -198,34 +225,47 @@ def forward_loss(model: GraspBalance, batch: dict, epoch: int, cfg: Config = Con
 
 def train_step(
     model: GraspBalance, optimizer, scheduler, batch: dict, epoch: int, cfg: Config = Config(),
-    *, plain: bool = False,
+    *, plain: bool = False, mesh=None,
 ) -> dict:
     """One step; ``batch`` (numpy arrays or tensors) is moved to the model's
     device and, with ``cfg.data.analytic_labels``, its labels expanded
     there. Returns the metrics as 0-dim tensors on the device (no host
-    sync); the parameters' .grad keep this step's gradients. ``plain`` runs
-    the plain PyTorch versions of FPS and the cylinder query (to compare
-    against them on the card; see ``GraspBalance.forward_train``)."""
+    sync); the parameters' .grad keep this step's gradients (summed over
+    the ranks). ``plain`` runs the plain PyTorch versions of FPS and the
+    cylinder query (to compare against them on the card; see
+    ``GraspBalance.forward_train``). With ``mesh``, ``batch`` is this
+    rank's rows and the step is the global batch's (see the module
+    docstring)."""
     set_matmul_precision()
     batch = _maybe_expand_analytic(to_device(batch, next(model.parameters()).device), cfg)
     optimizer.zero_grad(set_to_none=True)
-    loss, metrics = forward_loss(model, batch, epoch, cfg, plain=plain)
-    loss.backward()
+    group = axis_group(mesh, "data")
+    with data_parallel(group):
+        loss, metrics = forward_loss(model, batch, epoch, cfg, plain=plain)
+        loss.backward()
+    if group is not None:
+        all_reduce_grads_(model, group)
+        metrics = all_reduce_metrics(metrics, group)
     optimizer.step()
     scheduler.step()
     return {k: v.detach() for k, v in metrics.items()}
 
 
 @torch.no_grad()
-def eval_step(model: GraspBalance, batch: dict, cfg: Config = Config(), *, plain: bool = False) -> dict:
+def eval_step(model: GraspBalance, batch: dict, cfg: Config = Config(), *, plain: bool = False, mesh=None) -> dict:
     """The loss-only eval step: the model in eval mode (running BatchNorm
     statistics; on the card the width head's fused MLP, which has no
     backward, hence no gradients here), label matching as in training, and
     ``get_loss``'s metrics as 0-dim tensors on the device. ``batch`` as for
-    ``train_step``; ``plain`` runs the kernels' plain versions."""
+    ``train_step``; ``plain`` runs the kernels' plain versions. With
+    ``mesh``, ``batch`` is this rank's rows and the metrics are the global
+    batch's."""
     set_matmul_precision()
     batch = _maybe_expand_analytic(to_device(batch, next(model.parameters()).device), cfg)
     model.eval()
-    ep = model.forward_train(batch, plain=plain)
-    ep["objectness_label"] = batch["objectness_label"]
-    return get_loss(ep)[1]
+    group = axis_group(mesh, "data")
+    with data_parallel(group):
+        ep = model.forward_train(batch, plain=plain)
+        ep["objectness_label"] = batch["objectness_label"]
+        metrics = get_loss(ep)[1]
+    return metrics if group is None else all_reduce_metrics(metrics, group)

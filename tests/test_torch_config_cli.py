@@ -45,7 +45,7 @@ from graspbalance_tpu_torch.train.config import (
     config_from_dict,
     config_to_dict,
 )
-from graspbalance_tpu_torch.train.train_step import build_model, make_optimizer
+from graspbalance_tpu_torch.train.train_step import build_model, check_supported, make_optimizer
 from test_torch_train import CFG, JCFG, SCENE, STAGES
 from torch_threads import one_thread  # noqa: F401  (torch on one thread in this module)
 
@@ -150,17 +150,24 @@ def test_build_model_refuses_reduced_labels():
 
 def test_train_refuses_before_writing(tmp_path):
     """A config the port cannot honour is refused before the loop writes
-    its config.json or anything else into the log_dir."""
+    its config.json or anything else into the log_dir: here
+    n_data_shards=2 in a process without a 2-rank process group."""
     cfg = dataclasses.replace(CFG, train=TrainConfig(log_dir=str(tmp_path / "run"), n_data_shards=2))
-    with pytest.raises(ValueError, match="n_data_shards=2.*item 7"):
+    with pytest.raises(ValueError, match="n_data_shards=2 needs a process group of 2 ranks; this one has 1"):
         loop.train(cfg, lambda epoch: iter([{}]), steps_per_epoch=1, device="cpu")
     assert not (tmp_path / "run").exists()
 
 
 def test_build_model_refuses_data_shards():
-    with pytest.raises(ValueError, match="n_data_shards=2.*item 7"):
+    """n_data_shards must be the process group's size (1 without one), and
+    divide the batch; the message names both sizes."""
+    with pytest.raises(ValueError, match="n_data_shards=2 needs a process group of 2 ranks; this one has 1"):
         build_model(dataclasses.replace(CFG, train=TrainConfig(n_data_shards=2)), device="cpu")
     build_model(dataclasses.replace(CFG, train=TrainConfig(n_data_shards=1)), device="cpu")
+    odd = dataclasses.replace(CFG, data=DataConfig(batch_size=3), train=TrainConfig(n_data_shards=2))
+    with pytest.raises(ValueError, match="batch_size=3 does not split over n_data_shards=2 ranks"):
+        check_supported(odd, world=2)
+    check_supported(dataclasses.replace(odd, data=DataConfig(batch_size=4)), world=2)
 
 
 @pytest.mark.parametrize("opt_flatten", [True, False])

@@ -110,8 +110,10 @@ def test_check_supported_accepts_the_jax_models_and_refuses_the_rest():
                           (dict(num_depth=5), "num_depth=5"), (dict(backbone="resnet"), "backbone")):
         with pytest.raises(ValueError, match=match):
             check_supported(Config(model=dataclasses.replace(m, **fields)))
-    with pytest.raises(ValueError, match="n_data_shards=2.*item 7"):
+    with pytest.raises(ValueError, match="n_data_shards=2 needs a process group of 2 ranks; this one has 1"):
         check_supported(Config(model=m, train=TrainConfig(n_data_shards=2)))
+    with pytest.raises(ValueError, match="batch_size=2 does not split over n_data_shards=4 ranks"):
+        check_supported(Config(model=m, train=TrainConfig(n_data_shards=4)), world=4)
 
 
 def test_non_default_heads_train_as_jax(pairwise_bn_mean):  # noqa: F811
