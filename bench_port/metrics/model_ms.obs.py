@@ -1,0 +1,9 @@
+"""``model_ms.serve`` of the serving cell that runs OBS, read by
+``model_ms.serve.py``: a metric of its own, so that each serving cell's
+model time is held to what its own runs support (PERF.md §2)."""
+
+from pathlib import Path
+
+from bench_port.harness import load_module
+
+read = load_module(Path(__file__).with_name("model_ms.serve.py")).read
