@@ -57,8 +57,10 @@ failure:
      plain versions: segment labels and OBS seeds exact, decoded grasps as
      in phase 4, the same keep masks from the kernel and the plain
      postprocess on identical grasps, every output finite;
-  8. time both pipelines (clouds/s, p50 ms/scene, the share of postprocess
-     and of DSN + cluster + OBS, the NMS sweeps), then trace 3 calls of each
+  8. time both pipelines (clouds/s, p50 ms/scene), with the program's spans
+     on (``trace.py``, device events) over the timed calls: each stage's
+     device ms, share and host ms, the NMS sweeps, host reads and waits a
+     call from its counters; then trace 3 calls of each
      with torch.profiler: kernels, device ms and wall ms per call, the
      card's busy share and the largest kernels, one JSON line per pipeline;
   9. the training step, bs=2, full-width make_batch scenes (300 views, 4,096
@@ -232,6 +234,7 @@ any result. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import functools
@@ -255,7 +258,6 @@ GRASP_TOL = 1e-4  # abs, on decoded grasps of seeds whose argmaxes agree
 KNN_DIST_TOL = 1e-6  # abs; both sides round the same ops
 MAIN_ITERS = 20  # timed forward + decode calls, after a warm-up
 PIPELINE_ITERS = 10  # timed GraspInference calls per pipeline, after a warm-up
-STAGE_REPS = 3  # calls averaged per stage of the stage shares
 TRAIN_BATCH = 2  # the training step's batch (the JAX package's DataConfig.batch_size)
 TRAIN_STEPS = 6  # timed training steps through the kernels, after the compared one
 STEPS_PER_EPOCH = 10  # sets OneCycle's length (max_epoch x this); the run stays in epoch 0
@@ -454,6 +456,36 @@ def wall_ms(fn, reps: int = 1) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t) * 1e3 / reps
+
+
+def stage_line(got: dict, calls: int) -> str:
+    """The stages of ``calls`` served calls from the program's spans
+    (``trace.take()``, device events on): each stage of ``gb.call`` with its
+    device ms a call, its share of the call's, its host ms, and the device
+    ms of the stages inside it; the NMS sweeps, host reads and the host's
+    waits a call (the program's counters)."""
+    spans = got["spans"]
+    top = {s["id"] for s in spans if s["name"] == "gb.call"}
+    call_ms = sum(s["device_ms"] for s in spans if s["id"] in top) / calls
+    stages, inner = {}, {}
+    for s in spans:
+        if s["parent"] in top:
+            inner[s["id"]] = s["name"]
+            host, dev = stages.get(s["name"], (0.0, 0.0))
+            stages[s["name"]] = (host + (s["t1_ns"] - s["t0_ns"]) * 1e-6 / calls, dev + s["device_ms"] / calls)
+    within = collections.defaultdict(lambda: collections.defaultdict(float))
+    for s in spans:
+        if s["parent"] in inner:
+            within[inner[s["parent"]]][s["name"][3:]] += s["device_ms"] / calls
+    parts = []
+    for k, (host, dev) in stages.items():
+        sub = ", ".join(f"{n} {ms:.3f}" for n, ms in within[k].items())
+        parts.append(f"{k[3:]} {dev:.3f} ms ({dev / call_ms:.1%}, host {host:.3f})" + (f" [{sub}]" if sub else ""))
+    c = got["counters"]
+    reads = sum(v for k, v in c.items() if k.startswith("sync."))
+    return (f"stages from the spans (device ms a call, share of the call's {call_ms:.3f}, host ms) "
+            f"{', '.join(parts)}; NMS sweeps {c.get('nms.sweeps', 0) / calls:.1f}, host reads {reads / calls:.1f}, "
+            f"host waits {c.get('sync_wait_ns', 0) * 1e-6 / calls:.3f} ms a call")
 
 
 def rate_line(iters: list[float]) -> str:
@@ -2402,7 +2434,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
-    from graspbalance_tpu_torch import _build
+    from graspbalance_tpu_torch import _build, trace
     from graspbalance_tpu_torch.data.synthetic import SceneConfig, make_scenes
     from graspbalance_tpu_torch.eval.collision import voxel_downsample_fixed
     from graspbalance_tpu_torch.eval.obs import (
@@ -2747,41 +2779,20 @@ def main() -> int:
     }
     path_launches = {name: check_pipeline(name, infer, cloud) for name, infer in pipelines.items()}
 
-    # 8. timing of both pipelines
+    # 8. timing of both pipelines; the stage shares from the program's own
+    # spans over the timed calls (device events on), the NMS sweeps from
+    # its counter
     for name, infer in pipelines.items():
         iters = []
-        for _ in range(PIPELINE_ITERS + 1):
+        for i in range(PIPELINE_ITERS + 1):
+            if i == 1:  # after the untimed first call
+                trace.enable(device_events=True)
             t1 = time.perf_counter()
             infer(cloud)
             iters.append(time.perf_counter() - t1)
-        # stage shares: the pipeline's own steps, each timed up to the card's
-        # end of it; a stage that runs inside another is subtracted from it
-        with torch.no_grad():
-            stats = {}
-            parts = {}
-            st = {}
-            if infer.use_obs:
-                parts["shared fps"] = wall_ms(lambda: infer.sample(cloud), STAGE_REPS)
-                parts["dsn + cluster"] = wall_ms(lambda: st.update(seg=infer.segment(cloud)), STAGE_REPS)
-                parts["dsn + cluster"] -= parts["shared fps"]
-                parts["obs"] = wall_ms(lambda: object_balance_indices(cloud, st["seg"][0], num_seed=m), STAGE_REPS)
-            parts["forward"] = wall_ms(lambda: st.update(ep=infer.forward(cloud)), STAGE_REPS)
-            # the OBS forward runs the segment and OBS inside it
-            parts["forward"] -= sum(parts.get(k, 0.0) for k in ("shared fps", "dsn + cluster", "obs"))
-            parts["decode"] = wall_ms(lambda: st.update(zip(("g", "v"), pred_decode(st["ep"]))), STAGE_REPS)
-            parts["postprocess"] = wall_ms(lambda: infer.postprocess(st["g"], st["v"], cloud, stats=stats),
-                                           STAGE_REPS)
-            all_stats = {}
-            post_all = wall_ms(lambda: infer.postprocess(st["g"], torch.ones_like(st["v"]), cloud,
-                                                         stats=all_stats), STAGE_REPS)
-        total = sum(parts.values())
-        shares = ", ".join(f"{k} {v:.3f} ms ({v / total:.1%})" for k, v in parts.items())
-        seg_share = sum(parts.get(k, 0.0) for k in ("dsn + cluster", "obs")) / total
-        print(f"GraspInference {name} bs={BATCH}, {NUM_POINTS} pts: {rate_line(iters[1:])} "
-              f"({smi}); stages (ms per call, mean of {STAGE_REPS}) {shares}; postprocess share "
-              f"{parts['postprocess'] / total:.1%}, DSN+cluster+OBS share {seg_share:.1%}; "
-              f"NMS sweeps {stats['sweeps']}; postprocess with every seed valid {post_all:.3f} ms, "
-              f"{all_stats['sweeps']} NMS sweeps")
+        trace.disable()
+        print(f"GraspInference {name} bs={BATCH}, {NUM_POINTS} pts: {rate_line(iters[1:])} ({smi}); "
+              + stage_line(trace.take(), PIPELINE_ITERS))
 
     with torch.no_grad():
         profile_calls({name: functools.partial(infer, cloud) for name, infer in pipelines.items()})

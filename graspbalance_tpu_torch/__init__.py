@@ -33,6 +33,8 @@ Layout:
   parallel/ data-parallel training over torch.distributed ranks, and the
             DRP backbone with each cloud's points split over ranks
   utils/    parameter counts, bytes and norms
+  trace.py  spans over the stages of a served call and of a training step,
+            counters, and the host's waits on the card (off by default)
 """
 
 __version__ = "0.1.0"

@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from graspbalance_tpu_torch import trace
 from graspbalance_tpu_torch.ops.collision import (
     collision_counts,
     collision_counts_plain,
@@ -55,9 +56,10 @@ def segment_sums_sorted(values: torch.Tensor, start: torch.Tensor, count: torch.
     index order, starting from 0 (the order of a sequential segment sum), by
     a gather per position of the longest segment: no atomics, so the card
     gives the same bits on every run. Reads the longest segment's length on
-    the host (one sync)."""
+    the host (one sync: ``trace.host_read`` site "voxel", since the voxel
+    downsample is its caller)."""
     b, n, c = values.shape
-    longest = int(count.max()) if count.numel() else 0
+    longest = trace.host_read("voxel", lambda: int(count.max())) if count.numel() else 0
     acc = torch.zeros(count.shape + (c,), dtype=values.dtype, device=values.device)
     for j in range(longest):
         pos = (start + j).clamp(max=n - 1).to(torch.int64)

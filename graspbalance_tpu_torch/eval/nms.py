@@ -12,6 +12,8 @@ import math
 
 import torch
 
+from graspbalance_tpu_torch import trace
+
 
 def grasp_nms(
     grasps: torch.Tensor,
@@ -19,7 +21,6 @@ def grasp_nms(
     *,
     translation_thresh: float = 0.03,
     rotation_thresh: float = 30.0 / 180.0 * math.pi,
-    stats: dict | None = None,
 ) -> torch.Tensor:
     """grasps ([B,] G, 17) decoded rows; valid optional ([B,] G) bool.
 
@@ -27,8 +28,8 @@ def grasp_nms(
     recurrence ``keep[i] = valid[i] & ~any_{j<i}(C[j, i] & keep[j])`` (in
     score order, stable, invalid rows last) is Jacobi-iterated to its
     fixpoint, which is exactly the greedy result; each sweep reads one bool
-    on the host to test for the fixpoint. ``stats``, if given, receives the
-    number of sweeps under "sweeps"."""
+    on the host to test for the fixpoint (``trace.host_read`` site "nms").
+    The sweeps go to the counter ``nms.sweeps``."""
     single = grasps.ndim == 2
     if single:
         grasps = grasps.unsqueeze(0)
@@ -58,9 +59,8 @@ def grasp_nms(
         return valid_o & ~(lower & k.unsqueeze(2)).any(dim=1)
 
     prev, k, sweeps = valid_o, step(valid_o), 1
-    while sweeps < g and bool((k != prev).any()):
+    while sweeps < g and trace.host_read("nms", lambda: bool((k != prev).any())):
         prev, k, sweeps = k, step(k), sweeps + 1
-    if stats is not None:
-        stats["sweeps"] = sweeps
+    trace.count("nms.sweeps", sweeps)
     keep = torch.zeros_like(valid_o).scatter_(1, order, k)
     return keep[0] if single else keep

@@ -7,9 +7,12 @@
 Everything up to the final host copy runs on ``device``, which defaults to
 the card: ``GraspInference`` raises when no CUDA device is present unless
 the caller passes ``device="cpu"`` (where every kernel runs its plain
-version). ``to_grasp_group_array`` emits graspnetAPI's 17-column GraspGroup
-rows, and ``dump_dataset`` writes them for a dataset split in the layout
-graspnetAPI's evaluation reads.
+version). Each stage of a call is a span of ``trace.py`` (``gb.call`` over
+``gb.upload``, ``gb.segment``, ``gb.model``, ``gb.decode``,
+``gb.postprocess`` and ``gb.copy_out``), and the upload and the copies out
+are its ``host_read`` sites. ``to_grasp_group_array`` emits graspnetAPI's
+17-column GraspGroup rows, and ``dump_dataset`` writes them for a dataset
+split in the layout graspnetAPI's evaluation reads.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from graspbalance_tpu_torch import trace
 from graspbalance_tpu_torch.eval.collision import collision_detect, voxel_downsample_fixed
 from graspbalance_tpu_torch.eval.nms import grasp_nms
 from graspbalance_tpu_torch.models.decode import pred_decode
@@ -29,16 +33,19 @@ def make_postprocess(collision_thresh: float = 0.05):
     against the 5 mm voxel-downsampled scene.
 
     Returns ``postprocess(grasps (B, G, 17), valid (B, G), scene (B, N, 3),
-    *, plain=False, stats=None) -> keep (B, G) bool``; ``plain`` runs the
-    collision counts' plain version, ``stats`` receives the NMS sweeps."""
+    *, plain=False) -> keep (B, G) bool``; ``plain`` runs the collision
+    counts' plain version. Spans ``gb.nms``, ``gb.voxel``, ``gb.collision``."""
 
-    def postprocess(grasps, valid, scene, *, plain: bool = False, stats: dict | None = None):
-        keep = grasp_nms(grasps, valid, stats=stats)
-        s_ds, s_valid = voxel_downsample_fixed(scene)
-        coll = collision_detect(
-            s_ds, grasps, scene_valid=s_valid, collision_thresh=collision_thresh, plain=plain
-        )
-        return keep & ~coll
+    def postprocess(grasps, valid, scene, *, plain: bool = False):
+        with trace.span("gb.nms"):
+            keep = grasp_nms(grasps, valid)
+        with trace.span("gb.voxel"):
+            s_ds, s_valid = voxel_downsample_fixed(scene)
+        with trace.span("gb.collision"):
+            coll = collision_detect(
+                s_ds, grasps, scene_valid=s_valid, collision_thresh=collision_thresh, plain=plain
+            )
+            return keep & ~coll
 
     return postprocess
 
@@ -92,14 +99,18 @@ class GraspInference:
         (B, N) int32, sa_inds (B, n0_model) int32). The mean-shift noise is
         ``gumbel``, or is drawn from ``generator`` (default: a generator on
         the device seeded 0)."""
-        xyz = cloud[..., :3].contiguous()
-        sa_full = self.sample(xyz, plain=plain)
-        ep = self.dsn(cloud, sa_inds=sa_full[:, : self.n0_dsn], plain=plain)
-        fg = torch.argmax(ep["foreground_logits"], dim=-1) == 1
-        if gumbel is None and generator is None:
-            generator = torch.Generator(device=self.device).manual_seed(0)
-        labels, _, _ = cluster(xyz, ep["center_offsets"], fg, gumbel=gumbel, generator=generator)
-        return labels, sa_full[:, : self.n0_model]
+        with trace.span("gb.segment"):
+            xyz = cloud[..., :3].contiguous()
+            with trace.span("gb.fps"):
+                sa_full = self.sample(xyz, plain=plain)
+            with trace.span("gb.dsn"):
+                ep = self.dsn(cloud, sa_inds=sa_full[:, : self.n0_dsn], plain=plain)
+                fg = torch.argmax(ep["foreground_logits"], dim=-1) == 1
+            with trace.span("gb.cluster"):
+                if gumbel is None and generator is None:
+                    generator = torch.Generator(device=self.device).manual_seed(0)
+                labels, _, _ = cluster(xyz, ep["center_offsets"], fg, gumbel=gumbel, generator=generator)
+            return labels, sa_full[:, : self.n0_model]
 
     def forward(self, cloud: torch.Tensor, *, generator=None, gumbel=None, plain: bool = False) -> dict:
         """The model's end points, re-seeded by OBS when ``use_obs``."""
@@ -107,17 +118,25 @@ class GraspInference:
         if self.use_obs:
             labels, sa_inds = self.segment(cloud, generator=generator, gumbel=gumbel, plain=plain)
             kw = {"seed_cluster": labels, "sa_inds": sa_inds}
-        return self.model(cloud, plain=plain, **kw)
+        with trace.span("gb.model"):
+            return self.model(cloud, plain=plain, **kw)
 
     @torch.no_grad()
     def __call__(self, cloud, *, generator=None, gumbel=None):
         """cloud (B, N, 3) (numpy or tensor) -> (grasps (B, Ns, 17) numpy,
         keep (B, Ns) numpy bool)."""
-        cloud = torch.as_tensor(cloud, dtype=torch.float32).to(self.device)
-        ep = self.forward(cloud, generator=generator, gumbel=gumbel)
-        grasps, valid = pred_decode(ep)
-        keep = self.postprocess(grasps, valid, cloud[..., :3])
-        return grasps.cpu().numpy(), keep.cpu().numpy()
+        with trace.span("gb.call"):
+            with trace.span("gb.upload"):
+                host = torch.as_tensor(cloud, dtype=torch.float32)
+                cloud = trace.host_read("upload", lambda: host.to(self.device))
+            ep = self.forward(cloud, generator=generator, gumbel=gumbel)
+            with trace.span("gb.decode"):
+                grasps, valid = pred_decode(ep)
+            with trace.span("gb.postprocess"):
+                keep = self.postprocess(grasps, valid, cloud[..., :3])
+            with trace.span("gb.copy_out"):
+                grasps, keep = trace.host_read("copy_out", grasps.cpu), trace.host_read("copy_out", keep.cpu)
+            return grasps.numpy(), keep.numpy()
 
 
 def to_grasp_group_array(grasps: np.ndarray, keep: np.ndarray) -> np.ndarray:

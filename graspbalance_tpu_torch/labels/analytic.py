@@ -36,6 +36,7 @@ import functools
 import numpy as np
 import torch
 
+from graspbalance_tpu_torch import trace
 from graspbalance_tpu_torch.labels.geometry import GRASP_MAX_TOLERANCE, GRASP_MAX_WIDTH, _grasp_views_np
 
 WIDTH_MARGIN = 0.005  # gripper opening margin over the object extent
@@ -107,11 +108,12 @@ def expand_batch_labels(batch: dict, num_views: int, num_angles: int, num_depths
     (B, P, V, A, D) float32, computed on the device of its obj_sizes
     (B, O, 3) from grasp_pt_obj (B, P) and grasp_pt_mask (B, P). The widths
     and the tolerance are broadcast views over the depth axis (and the
-    tolerance over the points), as in the numpy version."""
+    tolerance over the points), as in the numpy version. The view grids'
+    uploads wait for the card (``trace.host_read`` site "label_grids")."""
     sizes = batch["obj_sizes"]
     dev = sizes.device
-    align, closing, u = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                         for a in _view_grids(num_views, num_angles, num_depths))
+    grids = [torch.from_numpy(np.ascontiguousarray(a)) for a in _view_grids(num_views, num_angles, num_depths)]
+    align, closing, u = (trace.host_read("label_grids", functools.partial(g.to, dev)) for g in grids)
     c = closing.abs()  # (V, A, 3)
     pt_obj = batch["grasp_pt_obj"].long()
     s = sizes.gather(1, pt_obj[..., None].expand(-1, -1, 3))[:, :, None, None, :]  # (B, P, 1, 1, 3)

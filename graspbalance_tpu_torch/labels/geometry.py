@@ -9,6 +9,8 @@ import functools
 import numpy as np
 import torch
 
+from graspbalance_tpu_torch import trace
+
 GRASP_MAX_WIDTH = 0.1
 GRASP_MAX_TOLERANCE = 0.05
 THRESH_GOOD = 0.7
@@ -29,8 +31,10 @@ def _grasp_views_np(n: int) -> np.ndarray:
 def generate_grasp_views(n: int = 300, device=None) -> torch.Tensor:
     """Fibonacci-sphere template view directions, (n, 3) float32 unit
     vectors: z_i = (2i+1)/n - 1, azimuth 2*pi*i*phi (golden ratio conjugate).
-    Computed in float64 and rounded once, as the JAX package does."""
-    return torch.from_numpy(_grasp_views_np(n).copy()).to(device)
+    Computed in float64 and rounded once, as the JAX package does. The
+    upload waits for the card (``trace.host_read`` site "views")."""
+    views = torch.from_numpy(_grasp_views_np(n).copy())
+    return trace.host_read("views", lambda: views.to(device))
 
 
 def _norm3(v: torch.Tensor) -> torch.Tensor:
@@ -43,11 +47,13 @@ def batch_viewpoint_params_to_matrix(towards: torch.Tensor, angle: torch.Tensor)
 
     x-axis = normalised ``towards``; y-axis from the horizontal perpendicular
     (+y when ``towards`` is vertical); z = x cross y; then an in-plane
-    rotation about x by ``angle``."""
+    rotation about x by ``angle``. The fallback axis's upload waits for the
+    card (``trace.host_read`` site "fallback_axis")."""
     ax = towards
     zeros = torch.zeros_like(ax[..., 0])
     ay = torch.stack([-ax[..., 1], ax[..., 0], zeros], dim=-1)
-    fallback = torch.tensor([0.0, 1.0, 0.0], dtype=ax.dtype, device=ax.device)
+    axis = functools.partial(torch.tensor, [0.0, 1.0, 0.0], dtype=ax.dtype, device=ax.device)
+    fallback = trace.host_read("fallback_axis", axis)
     ay = torch.where(_norm3(ay) == 0, fallback, ay)
     ax = ax / _norm3(ax)
     ay = ay / _norm3(ay)

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from graspbalance_tpu_torch import trace
 from graspbalance_tpu_torch.labels.geometry import (
     GRASP_MAX_TOLERANCE,
     GRASP_MAX_WIDTH,
@@ -49,13 +50,14 @@ def _masked_mean(values: torch.Tensor, mask: torch.Tensor, eps: float = 1e-6) ->
 def reweight_from_target_width(target_w: torch.Tensor) -> torch.Tensor:
     """Scale-prior weight (B, Ns) of the per-seed target width (B, Ns): its
     bin among the 32 scale intervals, strict inequalities, out of range ->
-    bin 0."""
+    bin 0. The uploads of the edges and the weights wait for the card
+    (``trace.host_read`` site "scale_bins")."""
     dev = target_w.device
-    edges = torch.from_numpy(SCALE_BIN_EDGES.astype("float32")).to(dev)
+    edges = trace.host_read("scale_bins", lambda: torch.from_numpy(SCALE_BIN_EDGES.astype("float32")).to(dev))
     w = target_w.unsqueeze(-1)
     in_bin = (edges[:-1] < w) & (edges[1:] > w)  # (B, Ns, 32)
     bin_id = (in_bin.long() * torch.arange(in_bin.shape[-1], device=dev)).sum(dim=-1)
-    return torch.from_numpy(scale_prior_weights()).to(dev)[bin_id]
+    return trace.host_read("scale_bins", lambda: torch.from_numpy(scale_prior_weights()).to(dev))[bin_id]
 
 
 def generate_reweight_mask(label_all: torch.Tensor, width_all: torch.Tensor) -> torch.Tensor:

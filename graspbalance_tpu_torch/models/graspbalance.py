@@ -22,6 +22,9 @@ objectness_score, view_score, grasp_top_view_{inds,score,xyz,rot},
 grasp_{score,angle_cls,width}_pred, grasp_tolerance_pred; with OBS also
 fp2_inds_fps (the backbone's own seed indices); in training also the
 batch_grasp_* labels of match_grasp_view_and_label.
+
+Spans (``trace.py``): ``gb.backbone``, ``gb.obs_reseed`` (OBS),
+``gb.graspable``, ``gb.label_match`` (training) and ``gb.heads`` (stage 2).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from graspbalance_tpu_torch import trace
 from graspbalance_tpu_torch.eval.obs import object_balance_indices
 from graspbalance_tpu_torch.labels.label_gen import match_grasp_view_and_label, process_grasp_labels
 from graspbalance_tpu_torch.models.backbone import SSG_STAGES, Pointnet2Backbone
@@ -124,21 +128,24 @@ class GraspBalance(nn.Module):
         without gradients (``forward_train`` is the training forward).
         ``plain`` runs the kernels' plain PyTorch versions instead (to compare
         against them on the card); on CPU tensors they run either way."""
-        ep = self.backbone(point_clouds, sa_inds=sa_inds, plain=plain)
+        with trace.span("gb.backbone"):
+            ep = self.backbone(point_clouds, sa_inds=sa_inds, plain=plain)
         seed_xyz, seed_features = ep["fp2_xyz"], ep["fp2_features"]
         if seed_cluster is not None:
-            # select first (OBS never reads features), then interpolate the
-            # seed features at just the chosen points
-            obs_inds = object_balance_indices(
-                ep["input_xyz"], seed_cluster, num_seed=self.backbone.num_seed, plain=plain
-            )
-            obs_xyz = gather_points(ep["input_xyz"], obs_inds)
-            obs_feats = interpolate_features(obs_xyz, seed_xyz, seed_features)
+            with trace.span("gb.obs_reseed"):
+                # select first (OBS never reads features), then interpolate
+                # the seed features at just the chosen points
+                obs_inds = object_balance_indices(
+                    ep["input_xyz"], seed_cluster, num_seed=self.backbone.num_seed, plain=plain
+                )
+                obs_xyz = gather_points(ep["input_xyz"], obs_inds)
+                obs_feats = interpolate_features(obs_xyz, seed_xyz, seed_features)
             ep["fp2_inds_fps"] = ep["fp2_inds"]
             seed_xyz = ep["fp2_xyz"] = obs_xyz
             seed_features = ep["fp2_features"] = obs_feats
             ep["fp2_inds"] = obs_inds
-        ep.update(self.graspable(seed_xyz, seed_features))
+        with trace.span("gb.graspable"):
+            ep.update(self.graspable(seed_xyz, seed_features))
         return self._stage2(ep, seed_xyz, ep["grasp_top_view_rot"], plain)
 
     def forward_train(self, batch: dict, *, plain: bool = False) -> dict:
@@ -151,24 +158,29 @@ class GraspBalance(nn.Module):
         under ``torch.no_grad()``). ``plain`` runs the plain PyTorch versions of FPS,
         the cylinder query and (eval mode) the width MLP; the gathers'
         backward follows the device (``ops/gather.py``)."""
-        ep = self.backbone(batch["point_clouds"], sa_inds=batch.get("sa_inds"), plain=plain)
-        ep.update(self.graspable(ep["fp2_xyz"], ep["fp2_features"]))
-        matched = match_grasp_view_and_label(
-            ep["grasp_top_view_inds"], process_grasp_labels(ep["fp2_xyz"], batch)
-        )
+        with trace.span("gb.backbone"):
+            ep = self.backbone(batch["point_clouds"], sa_inds=batch.get("sa_inds"), plain=plain)
+        with trace.span("gb.graspable"):
+            ep.update(self.graspable(ep["fp2_xyz"], ep["fp2_features"]))
+        with trace.span("gb.label_match"):
+            matched = match_grasp_view_and_label(
+                ep["grasp_top_view_inds"], process_grasp_labels(ep["fp2_xyz"], batch)
+            )
         ep.update(matched)
         return self._stage2(ep, matched["batch_grasp_point"], matched["batch_grasp_view_rot"], plain)
 
     def _stage2(self, ep: dict, centers, rot, plain: bool) -> dict:
         """Width grouping at ``centers`` (B, Ns, 3) with rotations ``rot``
-        (B, Ns, 3, 3), gated fusion with ep's seed features, the heads."""
-        seed_features = ep["fp2_features"]
-        vp = self.width_grouping(centers, ep["input_xyz"], rot, plain=plain)  # (B, Ns, D, R*256)
-        if self.multi_scale:
-            gate = torch.sigmoid(self.gate_fusion(seed_features))
-            vp_features = self.fuse_multi_scale(vp) + (gate * seed_features.to(gate.dtype)).unsqueeze(2)
-        else:  # the plain single-scale stage 2
-            vp_features = vp
-        ep.update(self.grasp_params(vp_features))
-        ep.update(self.tolerance(vp_features))
-        return ep
+        (B, Ns, 3, 3), gated fusion with ep's seed features, the heads: the
+        span ``gb.heads``."""
+        with trace.span("gb.heads"):
+            seed_features = ep["fp2_features"]
+            vp = self.width_grouping(centers, ep["input_xyz"], rot, plain=plain)  # (B, Ns, D, R*256)
+            if self.multi_scale:
+                gate = torch.sigmoid(self.gate_fusion(seed_features))
+                vp_features = self.fuse_multi_scale(vp) + (gate * seed_features.to(gate.dtype)).unsqueeze(2)
+            else:  # the plain single-scale stage 2
+                vp_features = vp
+            ep.update(self.grasp_params(vp_features))
+            ep.update(self.tolerance(vp_features))
+            return ep

@@ -20,9 +20,13 @@ global metrics. Only rank 0 writes: ``config.json``, the metric streams,
 the checkpoints, the profile. Every rank resumes from the checkpoints.
 
 Streams in ``log_dir`` (JSONL, and the text log ``log_train.txt``):
-  train_metrics.jsonl  each window's mean metrics (``time/step_ms`` is the
-                       step's dispatch time on the host clock) and the
-                       data source's ``telemetry()`` counters
+  train_metrics.jsonl  each window's mean metrics and the data source's
+                       ``telemetry()`` counters; ``time/step_ms`` is the
+                       step's device time on a CUDA device (a CUDA event
+                       pair around the step, read when the window is
+                       flushed, which waits for the card anyway; the host
+                       time elsewhere), ``time/dispatch_ms`` the host's
+                       time to issue the step (``metrics.step_timer``)
   test_metrics.jsonl   each eval pass's mean metrics
   loop_metrics.jsonl   per epoch: ``loop/ms_per_step`` (the epoch's host
                        time over its steps, the card synchronised at its
@@ -32,6 +36,11 @@ Streams in ``log_dir`` (JSONL, and the text log ``log_train.txt``):
                        (the transfer cache's uploads in the epoch, eval
                        included), and with a checkpoint
                        ``loop/checkpoint_ms`` and ``loop/checkpoint_bytes``
+
+With ``profile_steps``, the profiled steps run with the port's spans on
+(``trace.py``, through ``metrics.profiler_trace``), so the Chrome trace
+shows each step's stage ranges (``gb.train_step``, ``gb.transfer``, and
+``gb.make_batch`` on the prefetch thread).
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from graspbalance_tpu_torch import trace
 from graspbalance_tpu_torch.eval.pipeline import resolve_device
 from graspbalance_tpu_torch.parallel.mesh import is_lead, make_mesh, replicate_, shard_rows
 from graspbalance_tpu_torch.train.checkpoints import CheckpointManager, load_config
@@ -69,7 +79,8 @@ class TransferCache:
     through pinned memory and issued without blocking; a numpy array
     broadcast along its leading axis (stride 0, as the static labels are)
     is uploaded once and expanded on the device. ``uploads`` counts the
-    uploads per key and ``uploaded_bytes`` their bytes."""
+    uploads per key and ``uploaded_bytes`` their bytes. ``put`` is the span
+    ``gb.transfer``."""
 
     def __init__(self, device, mesh=None):
         self.device = torch.device(device)
@@ -81,12 +92,13 @@ class TransferCache:
 
     def put(self, batch: dict) -> dict:
         out = {}
-        for k, a in batch.items():
-            if self._host.get(k) is not a:
-                self._host[k] = a
-                self._dev[k] = self._upload(shard_rows(a, self.mesh))
-                self.uploads[k] += 1
-            out[k] = self._dev[k]
+        with trace.span("gb.transfer"):
+            for k, a in batch.items():
+                if self._host.get(k) is not a:
+                    self._host[k] = a
+                    self._dev[k] = self._upload(shard_rows(a, self.mesh))
+                    self.uploads[k] += 1
+                out[k] = self._dev[k]
         return out
 
     def take_counts(self) -> tuple[dict, int]:
@@ -116,7 +128,8 @@ class Prefetch:
     """Iterate ``iterable`` on a background thread, ``depth`` items ahead,
     so that making a batch on the host overlaps the device's step. An
     exception in the source is raised in the consumer. ``wait_s`` counts
-    the seconds the consumer spent waiting for an item."""
+    the seconds the consumer spent waiting for an item. Making each item is
+    the span ``gb.make_batch``, on the background thread."""
 
     _END = object()
 
@@ -128,7 +141,12 @@ class Prefetch:
 
     def _work(self, iterable):
         try:
-            for item in iterable:
+            items = iter(iterable)
+            while True:
+                with trace.span("gb.make_batch"):
+                    item = next(items, self._END)
+                if item is self._END:
+                    break
                 self._q.put((True, item))
         except BaseException as e:  # handed to the consumer, which raises it
             self._q.put((False, e))
@@ -216,7 +234,7 @@ def train(
                     elif i == t.profile_start + t.profile_steps:
                         profile.close()
                 batch = transfers.put(batch)
-                with step_timer(metrics := {}):
+                with step_timer(metrics := {}, device):
                     metrics_dev = train_step(state.model, state.optimizer, state.scheduler, batch, epoch, cfg,
                                              mesh=mesh)
                 state.step += 1

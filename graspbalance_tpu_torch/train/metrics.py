@@ -4,8 +4,9 @@ metrics.py).
 A windowed aggregator keeps its sums on the device and syncs only when it
 is flushed; a logger writes every window to ``{name}_metrics.jsonl`` and
 ``log_train.txt`` (and to TensorBoard where ``torch.utils.tensorboard``
-imports; it is never required). ``step_timer`` times a step on the host
-clock and ``profiler_trace`` records a ``torch.profiler`` trace.
+imports; it is never required). ``step_timer`` times a step on the card
+and on the host clock, and ``profiler_trace`` records a ``torch.profiler``
+trace with the port's spans (``trace.py``) on.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import time
 
 import torch
 
+from graspbalance_tpu_torch import trace
 
 class MetricAggregator:
     """Windowed mean. Each key's sum is a 0-dim tensor on the metrics'
@@ -90,20 +92,29 @@ class MetricLogger:
 
 
 @contextlib.contextmanager
-def step_timer(metrics_out: dict, key: str = "time/step_ms"):
-    """Host-clock ms of the block into ``metrics_out[key]``. On the card
-    this is the step's dispatch time, not its device time: PyTorch returns
-    before the card finishes, and the timer does not synchronise (as the
-    JAX package's returns before the TPU finishes)."""
+def step_timer(metrics_out: dict, device="cpu"):
+    """The block's times into ``metrics_out``: ``time/dispatch_ms``, the
+    host-clock ms of the block (on the card the time to issue the step:
+    PyTorch returns before the card finishes), and ``time/step_ms``. On a
+    CUDA ``device`` that is the block's device time, a ``trace.DeviceMs``
+    between CUDA events around it, which adds up in a ``MetricAggregator``
+    and is read when the window is flushed (a flush waits for the card
+    anyway, so no step waits for it); elsewhere the step runs on the host,
+    and it is the host time."""
+    cuda = torch.device(device).type == "cuda"
+    device_ms = trace.DeviceMs.start() if cuda else None
     t0 = time.perf_counter()
     yield
-    metrics_out[key] = (time.perf_counter() - t0) * 1000.0
+    metrics_out["time/dispatch_ms"] = (time.perf_counter() - t0) * 1000.0
+    metrics_out["time/step_ms"] = device_ms.stop() if cuda else metrics_out["time/dispatch_ms"]
 
 
 @contextlib.contextmanager
 def profiler_trace(log_dir: str, enabled: bool = False):
     """A ``torch.profiler`` trace of the block as a Chrome trace under
-    ``log_dir/profile`` when ``enabled``."""
+    ``log_dir/profile`` when ``enabled``, with the port's spans on for the
+    block (unless a caller already had them on), so that the trace shows
+    their ranges; the spans' own records are dropped."""
     if not enabled:
         yield
         return
@@ -112,6 +123,14 @@ def profiler_trace(log_dir: str, enabled: bool = False):
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     trace_dir = os.path.join(log_dir, "profile")
     os.makedirs(trace_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield
+    spans_on = not trace.enabled()
+    if spans_on:
+        trace.enable()
+    try:
+        with torch.profiler.profile(activities=activities) as prof:
+            yield
+    finally:
+        if spans_on:
+            trace.disable()
+            trace.take()
     prof.export_chrome_trace(os.path.join(trace_dir, f"trace_{time.time_ns()}.json"))

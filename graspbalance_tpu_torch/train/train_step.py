@@ -32,6 +32,11 @@ metrics, and every rank takes the same Adam step. The parameters start
 equal on every rank (``parallel.mesh.replicate_``), and the step draws
 nothing at random, so they stay equal. A mesh of one rank computes what
 the one-process step computes, bit for bit.
+
+A training step is the span ``gb.train_step`` of ``trace.py`` over
+``gb.label_expand`` (the upload and the analytic labels), ``gb.forward_train``
+(``GraspBalance.forward_train``'s own spans inside), ``gb.loss``,
+``gb.backward``, ``gb.allreduce`` (with a mesh) and ``gb.optimizer``.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import dataclasses
 import torch
 import torch.distributed as dist
 
+from graspbalance_tpu_torch import trace
 from graspbalance_tpu_torch.eval.pipeline import resolve_device
 from graspbalance_tpu_torch.labels.analytic import expand_batch_labels
 from graspbalance_tpu_torch.labels.losses import get_loss
@@ -218,9 +224,11 @@ def forward_loss(model: GraspBalance, batch: dict, epoch: int, cfg: Config = Con
         decay_step=t.bn_decay_step, floor=t.bn_momentum_floor,
     ))
     model.train()
-    ep = model.forward_train(batch, plain=plain)
+    with trace.span("gb.forward_train"):
+        ep = model.forward_train(batch, plain=plain)
     ep["objectness_label"] = batch["objectness_label"]
-    return get_loss(ep)
+    with trace.span("gb.loss"):
+        return get_loss(ep)
 
 
 def train_step(
@@ -236,19 +244,24 @@ def train_step(
     ``GraspBalance.forward_train``). With ``mesh``, ``batch`` is this
     rank's rows and the step is the global batch's (see the module
     docstring)."""
-    set_matmul_precision()
-    batch = _maybe_expand_analytic(to_device(batch, next(model.parameters()).device), cfg)
-    optimizer.zero_grad(set_to_none=True)
-    group = axis_group(mesh, "data")
-    with data_parallel(group):
-        loss, metrics = forward_loss(model, batch, epoch, cfg, plain=plain)
-        loss.backward()
-    if group is not None:
-        all_reduce_grads_(model, group)
-        metrics = all_reduce_metrics(metrics, group)
-    optimizer.step()
-    scheduler.step()
-    return {k: v.detach() for k, v in metrics.items()}
+    with trace.span("gb.train_step"):
+        set_matmul_precision()
+        with trace.span("gb.label_expand"):
+            batch = _maybe_expand_analytic(to_device(batch, next(model.parameters()).device), cfg)
+        optimizer.zero_grad(set_to_none=True)
+        group = axis_group(mesh, "data")
+        with data_parallel(group):
+            loss, metrics = forward_loss(model, batch, epoch, cfg, plain=plain)
+            with trace.span("gb.backward"):
+                loss.backward()
+        if group is not None:
+            with trace.span("gb.allreduce"):
+                all_reduce_grads_(model, group)
+                metrics = all_reduce_metrics(metrics, group)
+        with trace.span("gb.optimizer"):
+            optimizer.step()
+            scheduler.step()
+        return {k: v.detach() for k, v in metrics.items()}
 
 
 @torch.no_grad()

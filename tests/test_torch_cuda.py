@@ -43,7 +43,10 @@ the persistent blocks' stride, 10x the usual coordinates and pre-activations
 centred on the ReLU's edge; OBS at seed counts where the sparsest scene's
 quota is not the largest; and two launches of each bit-equal. For the
 training loop's pieces: the analytic labels expanded on the card against
-the host's numpy tensors and the transfer cache's identity hit. Marked
+the host's numpy tensors and the transfer cache's identity hit. For the
+tracer (``trace.py``): no synchronising call outside ``trace.host_read`` in
+a served call without and with OBS or in a training step, by torch's sync
+debug mode, and the device times of its spans and of ``step_timer``. Marked
 ``cuda``: they skip
 where torch has no CUDA device, and run on the card with
 
@@ -1147,3 +1150,82 @@ def test_transfer_cache_identity_hit_on_the_card(dev):
     assert cache.uploaded_bytes == 12 * 4 + 2 * 5 * 2 * 4
     torch.cuda.synchronize()
     assert torch.equal(first["static"].cpu(), torch.from_numpy(np.array(static)))
+
+
+# --- the tracer's rule on the card: every host wait through host_read ----
+
+TRACE_STAGES = (  # tests/tiny.py's stage table
+    (64, 0.08, 8, (16, 16, 32), 1, 0.16, 8),
+    (32, 0.20, 8, (16, 16, 32), 1, 0.40, 8),
+    (16, 0.40, 4, (16, 16, 32), 1, 0.80, 4),
+    (8, 0.60, 4, (16, 16, 32), 1, 1.20, 4),
+)
+
+
+def _trace_scene():
+    from graspbalance_tpu_torch.data.synthetic import SceneConfig
+
+    return SceneConfig(num_points=256, num_views=24, max_objects=4, max_grasp_points=128,
+                       grasp_points_per_object=24, num_objects=3, analytic_labels=True, emit_label_tensors=False,
+                       table_extent=0.12, object_scatter=0.08)
+
+
+@pytest.mark.parametrize("use_obs", [False, True])
+def test_served_call_waits_only_in_host_read_on_the_card(dev, use_obs):
+    """torch's sync debug mode flags no synchronising call outside
+    ``trace.host_read`` in a served call, and the spans' device events read
+    a positive time for the whole call."""
+    from graspbalance_tpu_torch import trace
+    from graspbalance_tpu_torch.data.synthetic import make_batch
+    from graspbalance_tpu_torch.eval.pipeline import GraspInference
+    from graspbalance_tpu_torch.models import DSN, GraspBalance
+
+    model = init_random_(GraspBalance(backbone_stages=TRACE_STAGES, num_seed=32, num_view=24), 3)
+    dsn = init_random_(DSN(((64, 0.2, 8, 16, 1), (32, 0.4, 8, 32, 1))), 4)
+    infer = GraspInference(model, dsn, use_obs=use_obs, device=dev)
+    cloud = make_batch(11, 2, _trace_scene())["point_clouds"]
+    infer(cloud)  # the first call loads the kernels
+    torch.cuda.synchronize()
+    assert trace.syncs_outside_host_read(lambda: infer(cloud)) == []
+    trace.enable(device_events=True)
+    try:
+        infer(cloud)
+    finally:
+        trace.disable()
+    got = trace.take()
+    call = next(s for s in got["spans"] if s["name"] == "gb.call")
+    assert call["device_ms"] > 0 and got["counters"]["sync.copy_out"] == 2
+
+
+def test_training_step_waits_only_in_host_read_on_the_card(dev):
+    """The same for a training step on a batch uploaded through the loop's
+    transfer cache, and ``step_timer``'s device time reads positive once
+    flushed."""
+    from graspbalance_tpu_torch import trace
+    from graspbalance_tpu_torch.data.synthetic import make_batch
+    from graspbalance_tpu_torch.train.config import Config, DataConfig, ModelConfig
+    from graspbalance_tpu_torch.train.loop import TransferCache
+    from graspbalance_tpu_torch.train.metrics import MetricAggregator, step_timer
+    from graspbalance_tpu_torch.train.train_step import build_model, make_optimizer, train_step
+
+    scene = _trace_scene()
+    cfg = Config(model=ModelConfig(num_view=24, backbone_stages=TRACE_STAGES, num_seed=32),
+                 data=DataConfig(num_points=scene.num_points, max_objects=scene.max_objects,
+                                 max_grasp_points=scene.max_grasp_points, batch_size=2, analytic_labels=True))
+    model = build_model(cfg, device=dev)
+    optimizer, scheduler = make_optimizer(model, cfg, 8)
+    cache = TransferCache(dev)
+
+    def step(seed):
+        return train_step(model, optimizer, scheduler, cache.put(make_batch(seed, 2, scene)), 0, cfg)
+
+    step(0)
+    torch.cuda.synchronize()
+    assert trace.syncs_outside_host_read(lambda: step(1)) == []
+    agg = MetricAggregator()
+    for seed in (2, 3):
+        with step_timer(out := {}, dev):
+            out.update(step(seed))
+        agg.update(out)
+    window = agg.flush()
+    assert window["time/step_ms"] > 0 and window["time/dispatch_ms"] > 0

@@ -1,6 +1,6 @@
 """The port stands without JAX: importing graspbalance_tpu_torch, all its
-modules (the eval/ and train/ subpackages included) and every module chip_smoke.py and
-time_main_path.py import pulls in no jax, flax or graspbalance_tpu (the
+modules (the eval/ and train/ subpackages included) and every module chip_smoke.py,
+time_main_path.py and trace_check.py import pulls in no jax, flax or graspbalance_tpu (the
 card's machine has none of them). Also: the port's synthetic scene clouds
 and instance labels equal the JAX package's, draw for draw."""
 
@@ -22,7 +22,7 @@ from graspbalance_tpu_torch.data.synthetic import SceneConfig, make_point_clouds
 from torch_threads import one_thread  # noqa: F401  (torch on one thread in this module)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SCRIPTS = ("chip_smoke", "time_main_path")  # the port's scripts at the root
+SCRIPTS = ("chip_smoke", "time_main_path", "trace_check")  # the port's scripts at the root
 
 
 def _modules_to_import():
@@ -50,6 +50,7 @@ def test_port_imports_no_jax():
     assert {"graspbalance_tpu_torch.ops.mlpmax", "graspbalance_tpu_torch.ops.select",
             "graspbalance_tpu_torch.ops.table_gather"} <= set(names)
     assert {"graspbalance_tpu_torch.eval.quality", "graspbalance_tpu_torch.cli.quality_gate"} <= set(names)
+    assert {"graspbalance_tpu_torch.trace", "bench_port.traffic.serve"} <= set(names)
     assert {
         "graspbalance_tpu_torch.labels.seg_losses", "graspbalance_tpu_torch.eval.seg_quality",
         "graspbalance_tpu_torch.train.seg_step", "graspbalance_tpu_torch.cli.train_seg",

@@ -29,6 +29,7 @@ from graspbalance_tpu.ops.pallas.collision_kernel import (
     collision_counts_pallas,
     pack_grasp_params as j_pack_grasp_params,
 )
+from graspbalance_tpu_torch import trace
 from graspbalance_tpu_torch.eval.collision import collision_detect, voxel_downsample_fixed
 from graspbalance_tpu_torch.eval.nms import grasp_nms
 from graspbalance_tpu_torch.eval.pipeline import make_postprocess
@@ -169,15 +170,19 @@ def test_grasp_nms_matches_jax(g):
     rows, valid = _nms_grasps(rng, max(g, 6))
     rows, valid = rows[:g], valid[:g]
     want = np.asarray(j_grasp_nms(jnp.asarray(rows), jnp.asarray(valid)))
-    stats = {}
-    got = grasp_nms(_t(rows), _t(valid), stats=stats)
+    trace.enable()
+    try:
+        got = grasp_nms(_t(rows), _t(valid))
+    finally:
+        trace.disable()
+    counters = trace.take()["counters"]
     assert got.dtype == torch.bool
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(
         grasp_nms(_t(rows)).numpy(), np.asarray(j_grasp_nms(jnp.asarray(rows)))
     )
     if g == 300:
-        assert stats["sweeps"] > 2  # suppression chains are deeper than one step
+        assert counters["nms.sweeps"] > 2  # suppression chains are deeper than one step
         assert 0 < int(got.sum()) < int(valid.sum())
 
 
