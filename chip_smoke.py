@@ -79,7 +79,16 @@ failure:
      steps through the kernels: each step's loss, ms per step (median and
      spread), clouds/s, a forward / backward / optimizer split from CUDA
      events and the peak device memory, and a torch.profiler pass over two
-     more steps (its JSON line as phase 8's);
+     more steps (its JSON line as phase 8's); the step's BatchNorm calls by
+     the program's counters (every one ``bn.fused``, none ``bn.plain``);
+     then the fused train-mode BatchNorm + ReLU (csrc/batchnorm.cu) at
+     BN_SHAPES: the forward bit-equal to the plain version's, dx, dweight
+     and dbias within 1e-4 of their largest |value| of float64 on the
+     kernel's own ReLU mask, two launches bit-equal; the forward, its
+     statistics (PyTorch's reductions), the backward and forward +
+     backward timed beside the bounds from bytes (the kernels' 7 passes;
+     the op's 8, statistics in one), the plain version and
+     F.batch_norm + relu;
  10. the fused configuration's kernels against their plain versions at its
      shapes, on the same weights as the default model: the mlp-max kernel
      at each of the 19 calls of one fused forward, captured from it (within
@@ -313,6 +322,15 @@ DEFAULT_NUM_SEED = 1024
 # another order in float32 and rounds to bfloat16
 BF16_LOSS_RTOL = 1e-3
 BF16_GRAD_COS = 0.99
+# the fused BatchNorm + ReLU's shapes, (rows, C): the width head's last
+# layer at bs=8 (8 x 4 depths x 1,024 seeds x 64 neighbours, 256), a
+# stage-2 block's expansion at bs=8 (8 x 1,024 x 32, 512), the graspable
+# head's conv2 at bs=8 (C % 4 != 0: the scalar route); its gradients'
+# tolerance (tests/test_torch_cuda.py's) and timed launches
+BN_SHAPES = ((2_097_152, 256), (262_144, 512), (32_768, 302))
+BN_GRAD_TOL = 1e-4
+BN_REPS = 10
+BN_KERNELS = ("bn_apply", "bn_grad_reduce", "bn_grad_apply")
 # biases whose gradient is 0 in exact arithmetic: a train-mode BatchNorm
 # downstream removes any per-channel shift they make
 ZERO_GRADIENT = ("fuse_multi_scale.bias", *(f"width_grouping.mlp_scale{i}.layer2.bn.bias" for i in range(4)))
@@ -321,30 +339,30 @@ PATH_KERNELS = {
     "main": ("fps", "multicyl", "widthmlp"),
     "no_obs": ("fps", "multicyl", "widthmlp", "collision"),
     "obs": ("fps", "multicyl", "widthmlp", "knn", "fps_masked", "collision"),
-    "train": ("fps", "multicyl", "scatter"),
-    "loop": ("fps", "multicyl", "scatter", "widthmlp"),
+    "train": ("fps", "multicyl", "scatter", *BN_KERNELS),
+    "loop": ("fps", "multicyl", "scatter", "widthmlp", *BN_KERNELS),
     "fused_main": ("fps", "multicyl", "mlpmax", "widthmlp_rel"),
     "fused_no_obs": ("fps", "multicyl", "mlpmax", "widthmlp_rel", "collision"),
     "fused_obs": ("fps", "multicyl", "mlpmax", "widthmlp_rel", "knn", "fps_masked", "collision"),
     "oracle": ("collision",),
     "train_bf16": ("fps", "multicyl", "scatter"),
     "gate": ("fps", "multicyl", "scatter", "widthmlp", "collision"),
-    "dsn_train": ("fps", "knn", "scatter"),
+    "dsn_train": ("fps", "knn", "scatter", *BN_KERNELS),
     # phase 19: the PointNet++ SSG model and the default model's variants
     "p2_main": ("fps", "multicyl", "widthmlp"),
     "p2_no_obs": ("fps", "multicyl", "widthmlp", "collision"),
     "p2_obs": ("fps", "multicyl", "widthmlp", "knn", "fps_masked", "collision"),
     "p2_fused_main": ("fps", "multicyl", "mlpmax", "widthmlp_rel"),
     "p2_fused_obs": ("fps", "multicyl", "mlpmax", "widthmlp_rel", "knn", "fps_masked", "collision"),
-    "p2_train": ("fps", "multicyl", "scatter"),
+    "p2_train": ("fps", "multicyl", "scatter", *BN_KERNELS),
     "single_scale": ("fps", "multicyl", "widthmlp"),
     "depth5": ("fps", "multicyl", "widthmlp"),
     "nearest": ("fps", "widthmlp"),
     "dsn_bf16": ("fps", "knn"),
     # phase 20: the data-parallel steps (each rank's; the grasp model's eval
     # and training steps)
-    "dp_train": ("fps", "multicyl", "scatter", "widthmlp"),
-    "dp_dsn": ("fps", "knn", "scatter"),
+    "dp_train": ("fps", "multicyl", "scatter", "widthmlp", *BN_KERNELS),
+    "dp_dsn": ("fps", "knn", "scatter", *BN_KERNELS),
 }
 # phase 19: LocalAggregation(grouper='knn') at DRP stages 2 and 3's
 # (points, channels, K), and the tolerances of K9's other callers against
@@ -1033,8 +1051,9 @@ def train_phase(dev, smi: str):
     max error, bound)."""
     import torch
 
-    from graspbalance_tpu_torch import _build
+    from graspbalance_tpu_torch import _build, trace
     from graspbalance_tpu_torch.data.synthetic import SceneConfig, make_batch
+    from graspbalance_tpu_torch.nn.layers import BatchNorm
     from graspbalance_tpu_torch.ops.scatter import scatter_add_plain
     from graspbalance_tpu_torch.train.config import Config
     from graspbalance_tpu_torch.train.train_step import (
@@ -1063,9 +1082,19 @@ def train_phase(dev, smi: str):
     torch.cuda.synchronize()
     _build.reset_launches()
     out = {}
-    calls = capture_scatters(lambda: out.update(train_step(model, opt, sched, batch, 0, cfg)))
+    trace.enable()
+    try:
+        calls = capture_scatters(lambda: out.update(train_step(model, opt, sched, batch, 0, cfg)))
+    finally:
+        trace.disable()
+    counters = trace.take()["counters"]
     torch.cuda.synchronize()
     launches = dict(_build.launches)
+    n_bn = sum(isinstance(m, BatchNorm) for m in model.modules())
+    print(f"training step BatchNorm calls: bn.fused {counters.get('bn.fused', 0)}, bn.plain "
+          f"{counters.get('bn.plain', 0)} ({n_bn} BatchNorm modules)")
+    require(counters.get("bn.fused", 0) >= n_bn and counters.get("bn.plain", 0) == 0,
+            f"training step: BatchNorm counters {counters}; every call must take the kernels")
     require(all(launches[k] > 0 for k in PATH_KERNELS["train"]) and launches["widthmlp"] == 0,
             f"training step: launches {launches}; needs fps, multicyl, scatter > 0 and widthmlp == 0")
     metrics_k = {k: float(v) for k, v in out.items()}
@@ -1123,6 +1152,79 @@ def train_phase(dev, smi: str):
           f"peak device memory {peak_gb:.2f} GB ({smi})")
     profile_calls({"train": lambda: train_step(model, opt, sched, batch, 0, cfg)}, calls=2)
     return launches, *scatter, statistics.median(ms)
+
+
+def bn_phase(smi: str) -> tuple[tuple, float, tuple, dict]:
+    """Phase 9's fused BatchNorm + ReLU at BN_SHAPES (see the module
+    docstring). Returns its table entries at the largest shape ((ms, plain
+    ms, library ms) of forward + backward, the largest error, the bound of
+    the op's 8 passes) and every shape's numbers."""
+    import torch
+    import torch.nn.functional as F
+
+    from graspbalance_tpu_torch.ops.batchnorm import (
+        batch_moments,
+        bn_act_backward_plain,
+        bn_act_train,
+        bn_act_train_plain,
+    )
+
+    eps, momentum = 1e-5, 0.1
+    shapes, worst = {}, 0.0
+    for rows, c in BN_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(rows + c)
+        x = torch.randn(rows, c, device="cuda", generator=g) * 2 + 1
+        dy = torch.randn(rows, c, device="cuda", generator=g)
+        w = 1 + 0.1 * torch.randn(c, device="cuda", generator=g)
+        b = 0.1 * torch.randn(c, device="cuda", generator=g)
+        rm, rv = torch.zeros(c, device="cuda"), torch.ones(c, device="cuda")
+        fns = {
+            "kernel": lambda xg, wg, bg: bn_act_train(xg, wg, bg, rm, rv, momentum, eps, True),
+            "plain": lambda xg, wg, bg: bn_act_train_plain(xg, wg, bg, rm, rv, momentum, eps, True),
+            "library": lambda xg, wg, bg: torch.relu(F.batch_norm(xg, rm, rv, wg, bg, True, momentum, eps)),
+        }
+
+        def step(fn):
+            xg, wg, bg = (t.detach().requires_grad_(True) for t in (x, w, b))
+            y = fn(xg, wg, bg)
+            return (y.detach(), *torch.autograd.grad(y, (xg, wg, bg), dy))
+
+        got, again = step(fns["kernel"]), step(fns["kernel"])
+        require(all(torch.equal(u, v) for u, v in zip(got, again)), f"batchnorm kernel not deterministic at {rows, c}")
+        require(torch.equal(got[0], step(fns["plain"])[0]), f"batchnorm forward != the plain version's at {rows, c}")
+        del again
+        want = bn_act_backward_plain(dy.double(), x.double(), w.double(), b.double(), eps, True, mask=got[0] > 0)
+        errs = {name: float((u.double() - v).abs().max()) / float(v.abs().max())
+                for name, u, v in zip(("dx", "dweight", "dbias"), got[1:], want)}
+        del want
+        require(max(errs.values()) <= BN_GRAD_TOL, f"batchnorm kernel at {rows, c}: errors {errs}")
+        worst = max(worst, *errs.values())
+        xg, wg, bg = (t.detach().requires_grad_(True) for t in (x, w, b))
+        y = fns["kernel"](xg, wg, bg)
+        sq = torch.empty_like(x)
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: fns["kernel"](x, w, b), BN_REPS)
+            stats_ms = cuda_ms(lambda: batch_moments(x, None, sq=sq), BN_REPS)
+        bwd_ms = cuda_ms(lambda: torch.autograd.grad(y, (xg, wg, bg), dy, retain_graph=True), BN_REPS)
+        del y, sq
+        ms = {name: cuda_ms(lambda fn=fn: step(fn), BN_REPS) for name, fn in fns.items()}
+        pass_ms = rows * c * 4 / PEAK_BYTES_S * 1e3
+        kernels_ms = fwd_ms - stats_ms + bwd_ms
+        shapes[f"{rows}x{c}"] = {"forward_ms": fwd_ms, "stats_ms": stats_ms, "backward_ms": bwd_ms, "ms": ms["kernel"],
+                                 "plain_ms": ms["plain"], "library_ms": ms["library"], "bound_ms": 8 * pass_ms,
+                                 "of_bound": ms["kernel"] / (8 * pass_ms), "kernels_ms": kernels_ms,
+                                 "kernels_bound_ms": 7 * pass_ms, "kernels_of_bound": kernels_ms / (7 * pass_ms),
+                                 "errors": errs}
+        print(f"batchnorm + relu ({rows}, {c}): forward {fwd_ms:.4f} ms (its statistics {stats_ms:.4f}), backward "
+              f"{bwd_ms:.4f} ms; the kernels {kernels_ms:.4f} ms = {kernels_ms / (7 * pass_ms):.3f} x their bound "
+              f"{7 * pass_ms:.4f} ms (bytes, 7 passes); forward + backward {ms['kernel']:.4f} ms = "
+              f"{ms['kernel'] / (8 * pass_ms):.3f} x the op's bound {8 * pass_ms:.4f} ms (8 passes); plain "
+              f"{ms['plain']:.4f} ms, F.batch_norm + relu {ms['library']:.4f} ms (CUDA events); forward bit-equal "
+              f"to the plain version's, backward errors {errs}; two launches bit-equal ({smi})")
+        del x, dy, got, xg, wg, bg
+        torch.cuda.empty_cache()
+    top = shapes[f"{BN_SHAPES[0][0]}x{BN_SHAPES[0][1]}"]
+    return (top["ms"], top["plain_ms"], top["library_ms"]), worst, (top["bound_ms"], "bytes"), shapes
 
 
 def stream_phase(dev, smi: str) -> dict:
@@ -2799,6 +2901,7 @@ def main() -> int:
 
     # 9. the training step
     path_launches["train"], times["scatter"], errs["scatter"], bounds["scatter"], step_ms = train_phase(dev, smi)
+    times["bn"], errs["bn"], bounds["bn"], bn_shapes = bn_phase(smi)
 
     # 10-13. the fused eval configuration; 14. the table-gather probe
     fused = fused_phase(model, dsn, cloud, smi)
@@ -2857,6 +2960,25 @@ def main() -> int:
         }
         for k_num, name, measured, source, replaces, path in KERNEL_TABLE
     ]
+    table.append({
+        "name": "bn_act_train",
+        "tpu_kernel": None,
+        "route": "cuda",
+        "source": "graspbalance_tpu_torch/csrc/batchnorm.cu",
+        "replaces": "none (the JAX package's BatchNorm is plain XLA)",
+        "path": "train",
+        "launches": {k: path_launches["train"][k] for k in BN_KERNELS},
+        "max_abs_err": errs["bn"],
+        "ms": times["bn"][0],
+        "plain_ms": times["bn"][1],
+        "bound_ms": bounds["bn"][0],
+        "bound_by": bounds["bn"][1],
+        "library_ms": times["bn"][2],
+        "shapes": bn_shapes,
+        "dsn_train_launches": {k: path_launches["dsn_train"][k] for k in BN_KERNELS},
+        "pointnet2_launches": {k: sum(p2_launches[p][k] for p in p2_launches) for k in BN_KERNELS},
+        "dp_launches": {k: dp_launches[k] for k in BN_KERNELS},
+    })
     print(json.dumps({"kernels": table}))
     print(json.dumps({
         "ok": True,

@@ -14,8 +14,9 @@ Layout:
             wrappers of the six CUDA kernels (``csrc/*.cu``, built by
             ``_build.py``): FPS and its masked mode, the multi-cylinder
             query, the width MLP, kNN, the collision counts
-  nn/       BatchNorm / MLPBlock / SharedMLP, set abstraction and feature
-            propagation
+  nn/       BatchNorm / MLPBlock / SharedMLP (train-mode BatchNorm + ReLU
+            through ``ops/batchnorm.py``'s kernels on the card), set
+            abstraction and feature propagation
   models/   DRP backbone, grasp heads, GraspBalance eval forward (with OBS
             re-seeding), pred_decode, the point-transformer DSN
   eval/     grasp NMS, voxel downsample + collision filter, mean shift, OBS,

@@ -31,13 +31,15 @@ NVCC_FLAGS = (
 )
 KERNELS = (
     "fps", "multicyl", "widthmlp", "knn", "fps_masked", "collision", "scatter",
-    "mlpmax", "widthmlp_rel", "select", "table_gather",
+    "mlpmax", "widthmlp_rel", "select", "table_gather", "bn_apply", "bn_grad_reduce", "bn_grad_apply",
 )
 
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     # name: argument types; every entry point returns a cudaError_t as int
     "gb_fps": (_P, _P, _P, _I, _I, _I, _P),
@@ -53,6 +55,9 @@ _SIGNATURES = {
     "gb_widthmlp_rel": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "gb_select": (_P, _P, _I, _I, _I, _I, _I, _P),
     "gb_table_gather": (_P, _P, _P, _I, _I, _I, _P),
+    "gb_bn_apply": (_P, _P, _P, _P, _L, _I, _I, _P),
+    "gb_bn_grad_reduce": (_P, _P, _P, _P, _P, _P, _L, _I, _F, _I, _I, _P),
+    "gb_bn_grad_apply": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _P),
 }
 
 
@@ -107,6 +112,8 @@ def library() -> ctypes.CDLL:
     lib.gb_scatter_add_scratch.restype = ctypes.c_longlong
     lib.gb_fps_stream_slots.argtypes = (_I,)
     lib.gb_fps_stream_slots.restype = ctypes.c_longlong
+    lib.gb_bn_partials.argtypes = (_L, _I)
+    lib.gb_bn_partials.restype = ctypes.c_longlong
     lib.gb_error_string.argtypes = (ctypes.c_int,)
     lib.gb_error_string.restype = ctypes.c_char_p
     return lib

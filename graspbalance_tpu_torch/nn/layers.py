@@ -25,7 +25,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from graspbalance_tpu_torch.parallel.mesh import all_reduce_sum, data_group
+from graspbalance_tpu_torch import trace
+from graspbalance_tpu_torch.ops.batchnorm import bn_act_train, bn_act_train_plain, kernel_rows, normalize
+from graspbalance_tpu_torch.parallel.mesh import data_group
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -55,9 +57,9 @@ class BatchNorm(nn.Module):
     ``running = (1 - m) * running + m * batch``, with the unbiased variance
     n / (n - 1) * var; ``momentum`` is ``m``, set by the training step.
     Within ``parallel.mesh.data_parallel`` the batch statistics and n span
-    every rank of its group (``_group_statistics``), as the JAX package's
-    mesh step computes them over the global batch; outside it, or in a
-    group of one rank, nothing changes.
+    every rank of its group (``ops/batchnorm.group_moments``), as the JAX
+    package's mesh step computes them over the global batch; outside it, or
+    in a group of one rank, nothing changes.
     The statistics are in the buffers' dtype (float32) whatever ``dtype``:
     a bfloat16 input is read as float32 for them, and the normalisation and
     the affine run in bfloat16 on the statistics and parameters cast to
@@ -73,49 +75,20 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, act: bool = False) -> torch.Tensor:
+        """The norm, then a ReLU with ``act``. A train-mode float32 call on a
+        CUDA tensor runs the fused kernels (``ops/batchnorm.bn_act_train`` on
+        the rows); any other train-mode call runs the plain version."""
         if not self.training:
-            mean, var = self.running_mean, self.running_var
-        else:
-            xf = x.to(self.running_mean.dtype)
-            group = data_group()
-            if group is None:
-                axes = tuple(range(x.ndim - 1))
-                mean = xf.mean(dim=axes)
-                var = (xf * xf).mean(dim=axes) - mean * mean
-                n = x.numel() // x.shape[-1]
-                unbias = n / max(n - 1, 1)
-            else:
-                mean, var, unbias = self._group_statistics(xf, group)
-            m = np.float32(self.momentum)  # both factors rounded to f32, as in JAX
-            keep, m = float(np.float32(1.0) - m), float(m)
-            with torch.no_grad():
-                self.running_mean.copy_(keep * self.running_mean + m * mean)
-                self.running_var.copy_(keep * self.running_var + m * (var * unbias))
-        if self.dtype == torch.float32:
-            inv = self.weight * (1.0 / torch.sqrt(var + self.eps))
-            return (x.to(mean.dtype) - mean) * inv + self.bias
-        d = self.dtype
-        inv = self.weight.to(d) * (1.0 / torch.sqrt(var + self.eps)).to(d)
-        return (x.to(d) - mean.to(d)) * inv + self.bias.to(d)
-
-    @staticmethod
-    def _group_statistics(xf: torch.Tensor, group):
-        """The batch statistics over every rank of ``group``: the sums of x
-        and x^2 and the row count, summed over the ranks in float64 (the
-        backward sums the cotangents over them too), give mean(x) and
-        mean(x^2) in float32 and the variance mean(x^2) - mean^2 as one
-        process forms it. Returns (mean, var, the unbiased factor
-        n / (n - 1) of the global row count n)."""
-        c = xf.shape[-1]
-        rows = xf.reshape(-1, c)
-        count = torch.full((1,), rows.shape[0], dtype=torch.float64, device=rows.device)
-        local = torch.cat([rows.sum(dim=0).double(), (rows * rows).sum(dim=0).double(), count])
-        total = all_reduce_sum(local, group)
-        n = total[-1]
-        mean = (total[:c] / n).to(xf.dtype)
-        var = (total[c:2 * c] / n).to(xf.dtype) - mean * mean
-        return mean, var, (n / torch.clamp(n - 1, min=1)).to(xf.dtype)
+            y = normalize(x, self.running_mean, self.running_var, self.weight, self.bias, self.eps, self.dtype)
+            return torch.relu(y) if act else y
+        args = (self.weight, self.bias, self.running_mean, self.running_var, self.momentum, self.eps, act)
+        if x.is_cuda and self.dtype == torch.float32 and x.dtype == torch.float32:
+            rows = kernel_rows(x.reshape(-1, x.shape[-1]))
+            return bn_act_train(rows, *args, group=data_group()).view(x.shape)
+        if x.is_cuda:
+            trace.count("bn.plain")
+        return bn_act_train_plain(x, *args, group=data_group(), dtype=self.dtype)
 
     def fold(self, dense_weight: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """Fold this BN into the preceding bias-free dense layer:
@@ -207,6 +180,8 @@ class MLPBlock(nn.Module):
         if self.order == "conv-act-norm":
             x = self._act(x)
             return self.bn(x) if self.use_bn else x
+        if self.use_bn and self.act and self.act_fn is torch.relu and isinstance(self.bn, BatchNorm):
+            return self.bn(x, act=True)  # the ReLU fused into the norm
         x = self.bn(x) if self.use_bn else x
         return self._act(x)
 

@@ -1,8 +1,9 @@
 """Point-cloud primitives. On a CUDA tensor, FPS (and its masked mode), the
 multi-cylinder query, the fused width MLPs, kNN, the collision counts, the
 scatter-add, the fused group MLP + reduction (ops/mlpmax.py), the class-plane
-selection (ops/select.py) and the table-gather probe (ops/table_gather.py)
-launch hand-written kernels; on a CPU tensor they run their plain PyTorch
+selection (ops/select.py), the table-gather probe (ops/table_gather.py) and
+the train-mode BatchNorm + ReLU (ops/batchnorm.py) launch hand-written
+kernels; on a CPU tensor they run their plain PyTorch
 versions. The other ops (the queries' plain selections, nearest order
 included, ``random_sample``, ``trilinear_sample``) are PyTorch on any
 device."""

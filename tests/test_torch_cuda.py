@@ -41,7 +41,12 @@ around every cluster size and block slice at B = 1, 3 and 5, and exact ties
 across the blocks of a cluster; for both width-MLP layouts seed counts off
 the persistent blocks' stride, 10x the usual coordinates and pre-activations
 centred on the ReLU's edge; OBS at seed counts where the sparsest scene's
-quota is not the largest; and two launches of each bit-equal. For the
+quota is not the largest; the train-mode BatchNorm + ReLU at the main
+path's shapes, one row, rows off its 4-row rounds and slabs, one channel,
+channels past one block and past its finalize block, the data-parallel
+route on a group of one, the module's route (launches, counters, copies
+of unaligned rows, bfloat16 and eval mode), and its forward bit-equal to
+the plain version's; and two launches of each bit-equal. For the
 training loop's pieces: the analytic labels expanded on the card against
 the host's numpy tensors and the transfer cache's identity hit. For the
 tracer (``trace.py``): no synchronising call outside ``trace.host_read`` in
@@ -66,7 +71,8 @@ integer-valued cotangents, bit-equal between two launches, and on float
 cotangents within 1e-5 of the float64 sums (the plain index_add_ adds in
 atomic order) and within the worst-case bound of recursive f32 summation;
 the label expansion exactly except where a width lies within an ulp of
-GRASP_MAX_WIDTH.
+GRASP_MAX_WIDTH; the BatchNorm kernels against float64 (see BN_Y_TOL and
+BN_GRAD_TOL), the plain float32 version held to the same limits.
 """
 
 import numpy as np
@@ -77,6 +83,8 @@ from graspbalance_tpu_torch import _build
 from graspbalance_tpu_torch.eval.collision import collision_detect, voxel_downsample_fixed
 from graspbalance_tpu_torch.eval.obs import object_balance_indices
 from graspbalance_tpu_torch.models.heads import MultiScaleWidthGrouping
+from graspbalance_tpu_torch.nn.layers import BatchNorm, MLPBlock
+from graspbalance_tpu_torch.ops.batchnorm import bn_act_backward_plain, bn_act_train, bn_act_train_plain
 from graspbalance_tpu_torch.ops.collision import (
     collision_counts,
     collision_counts_plain,
@@ -1229,3 +1237,194 @@ def test_training_step_waits_only_in_host_read_on_the_card(dev):
         agg.update(out)
     window = agg.flush()
     assert window["time/step_ms"] > 0 and window["time/dispatch_ms"] > 0
+
+
+# --- train-mode BatchNorm + ReLU (csrc/batchnorm.cu) ----------------------
+
+BN_EPS = 1e-5
+BN_MOMENTUM = 0.37
+# the main path's shapes: the width head's last layer, a stage-2 block's
+# expansion, the graspable head's conv2 (C % 4 != 0: the scalar route)
+BN_SHAPES = [(2_097_152, 256), (262_144, 512), (32_768, 302)]
+# against float64 on the kernel's own ReLU mask: the forward within 1e-5
+# abs + rel (the statistics are float32 sums of up to 2M rows in another
+# order), dx, dweight and dbias within 1e-4 of their largest |value| (the
+# same sums, then the closed-form backward's two per-channel sums), the
+# running statistics within 1e-5
+BN_Y_TOL = 1e-5
+BN_GRAD_TOL = 1e-4
+BN_STAT_TOL = 1e-5
+
+
+def _bn_inputs(dev, rows, c, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(rows, c, device=dev, generator=g) * 2 + 1
+    dy = torch.randn(rows, c, device=dev, generator=g)
+    w = 1 + 0.1 * torch.randn(c, device=dev, generator=g)
+    b = 0.1 * torch.randn(c, device=dev, generator=g)
+    rm = 0.1 * torch.randn(c, device=dev, generator=g)
+    rv = 0.5 + torch.rand(c, device=dev, generator=g)
+    return x, dy, w, b, rm, rv
+
+
+def _bn_run(fn, x, dy, w, b, rm, rv, act, **kw):
+    """(y, running mean, running var, dx, dweight, dbias) of ``fn``."""
+    xg, wg, bg = (t.clone().requires_grad_(True) for t in (x, w, b))
+    rm, rv = rm.clone(), rv.clone()
+    y = fn(xg, wg, bg, rm, rv, BN_MOMENTUM, BN_EPS, act, **kw)
+    y.backward(dy)
+    return y.detach(), rm, rv, xg.grad, wg.grad, bg.grad
+
+
+def _bn_float64(x, dy, w, b, rm, rv, act, mask):
+    """The same outputs in float64, the ReLU's gradient taken on ``mask``
+    (the kernel's y > 0), so that an element within rounding of the ReLU's
+    edge counts on the same side."""
+    x, dy, w, b, rm, rv = (t.double() for t in (x, dy, w, b, rm, rv))
+    n = x.shape[0]
+    mean = x.mean(dim=0)
+    var = (x * x).mean(dim=0) - mean * mean
+    y = (x - mean) * (w / torch.sqrt(var + BN_EPS)) + b
+    m = float(np.float32(BN_MOMENTUM))
+    return (y.clamp(min=0) if act else y, (1 - m) * rm + m * mean, (1 - m) * rv + m * var * n / max(n - 1, 1),
+            *bn_act_backward_plain(dy, x, w, b, BN_EPS, act, mask=mask))
+
+
+def _bn_check(got, want):
+    names = ("y", "running_mean", "running_var", "dx", "dweight", "dbias")
+    for name, a, b in zip(names, got, want):
+        err = float((a.double() - b).abs().max())
+        if name == "y":
+            limit = BN_Y_TOL * (1 + float(b.abs().max()))
+        elif name.startswith("running"):
+            limit = BN_STAT_TOL * (1 + float(b.abs().max()))
+        else:
+            limit = BN_GRAD_TOL * float(b.abs().max())
+        assert err <= limit, f"{name}: {err:.3g} > {limit:.3g}"
+
+
+@pytest.mark.parametrize("act", [True, False])
+@pytest.mark.parametrize("rows,c", BN_SHAPES)
+def test_batchnorm_kernel_at_the_path_shapes(dev, rows, c, act):
+    """The kernels against float64 at the main path's shapes, and the plain
+    float32 version held to the same limits."""
+    inputs = _bn_inputs(dev, rows, c)
+    got = _bn_run(bn_act_train, *inputs, act)
+    want = _bn_float64(*inputs, act, got[0] > 0)
+    _bn_check(got, want)
+    plain = _bn_run(bn_act_train_plain, *inputs, act)
+    _bn_check(plain, _bn_float64(*inputs, act, plain[0] > 0))
+
+
+@pytest.mark.parametrize("act", [True, False])
+@pytest.mark.parametrize("rows,c", [(1, 64), (5, 3), (1000, 1), (4097, 4), (999, 302), (3001, 1030), (333, 4096),
+                                    (70_001, 128)])
+def test_batchnorm_kernel_edge_shapes(dev, rows, c, act):
+    """One row, rows off the 4-row rounds and the slabs, one channel,
+    channels past one block (scalar at 1030, vector at 4096) and past the
+    finalize block's 1024."""
+    inputs = _bn_inputs(dev, rows, c, seed=1)
+    got = _bn_run(bn_act_train, *inputs, act)
+    _bn_check(got, _bn_float64(*inputs, act, got[0] > 0))
+
+
+def test_batchnorm_kernel_is_deterministic(dev):
+    inputs = _bn_inputs(dev, 262_144, 512, seed=2)
+    first = _bn_run(bn_act_train, *inputs, True)
+    second = _bn_run(bn_act_train, *inputs, True)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("shape", [(8, 1024, 32, 128), (8, 4096, 302), (5, 7, 64)])
+def test_batchnorm_kernel_forward_is_the_plain_version_bit_for_bit(dev, shape):
+    """The module's kernel route against the plain version on the same
+    tensor: the statistics from the same PyTorch reductions and the apply
+    pass rounding op by op as the plain code, so y and the running
+    statistics are bit-equal, with and without the ReLU."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(shape, device=dev, generator=g) * 2 + 1
+    for act in (True, False):
+        bn = BatchNorm(shape[-1]).to(dev).train()
+        with torch.no_grad():
+            bn.weight.uniform_(0.5, 1.5, generator=g)
+            bn.bias.uniform_(-0.1, 0.1, generator=g)
+        rm, rv = bn.running_mean.clone(), bn.running_var.clone()
+        y = bn(x, act=act)
+        want = bn_act_train_plain(x, bn.weight, bn.bias, rm, rv, bn.momentum, bn.eps, act)
+        assert torch.equal(y, want) and torch.equal(bn.running_mean, rm) and torch.equal(bn.running_var, rv)
+
+
+def test_batchnorm_kernel_on_a_group_of_one(dev, tmp_path):
+    """The data-parallel route (local sums, added over the group in float64
+    by the wrapper) on a gloo group of one rank, against the local route."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already set up in this process")
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0, world_size=1)
+    try:
+        inputs = _bn_inputs(dev, 70_001, 64, seed=4)
+        for act in (True, False):
+            local = _bn_run(bn_act_train, *inputs, act)
+            grouped = _bn_run(bn_act_train, *inputs, act, group=dist.group.WORLD)
+            _bn_check(grouped, [t.double() for t in local])
+    finally:
+        dist.destroy_process_group()
+
+
+def test_batchnorm_kernel_refuses_what_it_cannot_take(dev):
+    w, b, rm, rv = (torch.ones(64, device=dev) for _ in range(4))
+    args = (w, b, rm, rv, 0.1, BN_EPS, True)
+    with pytest.raises(ValueError, match="float32"):
+        bn_act_train(torch.zeros(8, 64, device=dev, dtype=torch.bfloat16), *args)
+    with pytest.raises(ValueError, match="contiguous"):
+        bn_act_train(torch.zeros(64, 16, device=dev).t(), *args)
+    flat = torch.zeros(8 * 64 + 1, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        bn_act_train(flat[1:].view(8, 64), *args)
+    with pytest.raises(ValueError, match="rows, C"):
+        bn_act_train(torch.zeros(2, 4, 64, device=dev), *args)
+    with pytest.raises(ValueError, match="channels"):
+        bn_act_train(torch.zeros(8, 32, device=dev), *args)
+
+
+def test_batchnorm_module_takes_the_kernels_in_train_mode(dev):
+    """A train-mode float32 BatchNorm on the card launches each kernel once
+    a forward and once a backward and counts ``bn.fused``; a non-contiguous
+    or unaligned input is copied to aligned rows first; a bfloat16 module
+    runs the plain version and counts ``bn.plain``; eval mode counts
+    neither and launches nothing."""
+    from graspbalance_tpu_torch import trace
+
+    names = ("bn_apply", "bn_grad_reduce", "bn_grad_apply")
+    base = torch.randn(2, 3, 50, 65, device=dev)
+    flat = torch.randn(2 * 3 * 50 * 64 + 1, device=dev)
+    trace.enable()
+    try:
+        for x in (base[..., :64], flat[1:].view(2, 3, 50, 64)):
+            x = x.detach().requires_grad_(True)
+            before = {k: _build.launches[k] for k in names}
+            bn = BatchNorm(64).to(dev).train()
+            y = bn(x, act=True)
+            want = bn_act_train_plain(x.detach(), bn.weight, bn.bias, torch.zeros(64, device=dev),
+                                      torch.ones(64, device=dev), bn.momentum, bn.eps, True)
+            torch.testing.assert_close(y, want, atol=1e-5, rtol=1e-5)
+            y.sum().backward()
+            assert all(_build.launches[k] == before[k] + 1 for k in names)
+        BatchNorm(64, dtype=torch.bfloat16).to(dev).train()(base[..., :64])
+        BatchNorm(64).to(dev).eval()(base[..., :64])
+    finally:
+        trace.disable()
+    counters = trace.take()["counters"]
+    assert counters.get("bn.fused") == 2 and counters.get("bn.plain") == 1
+
+
+def test_mlp_block_fuses_its_relu_on_the_card(dev):
+    torch.manual_seed(0)
+    block = MLPBlock(32, 128).to(dev).train()
+    x = torch.randn(4, 1024, 16, 32, device=dev)
+    y = block(x)
+    plain = torch.relu(bn_act_train_plain(block.dense(x), block.bn.weight, block.bn.bias,
+                                          torch.zeros(128, device=dev), torch.ones(128, device=dev),
+                                          block.bn.momentum, block.bn.eps, False))
+    torch.testing.assert_close(y, plain, atol=1e-5, rtol=1e-5)
