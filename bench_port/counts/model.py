@@ -4,17 +4,23 @@ product) of the forward pass, at the rows that layer sees. Elementwise
 work, norms, gathers and reductions are not counted.
 
 ``graspbalance_forward`` counts the program's eval forward of
-``GraspBalance`` (either backbone), ``dsn_forward`` the DSN's; the CPU tests
-hold both equal to ``torch.utils.flop_counter.FlopCounterMode``'s count of
-the plain reference's forward.
+``GraspBalance``: the configuration's backbone, by its count file
+``backbones/<name>.py``, and the heads; ``dsn_forward`` the DSN's. The CPU
+tests hold both equal to ``torch.utils.flop_counter.FlopCounterMode``'s
+count of the plain reference's forward.
 """
 
 from __future__ import annotations
+
+from pathlib import Path
+
+from bench_port.harness import load_named
 
 SEED_FEATURES = 256
 WIDTH_K = 64
 WIDTH_MLP = (64, 128, 256)
 N_SCALES = 4
+BACKBONES = Path(__file__).resolve().parent / "backbones"
 
 
 def mlp(rows: int, dims) -> float:
@@ -22,30 +28,18 @@ def mlp(rows: int, dims) -> float:
     return sum(2.0 * rows * a * b for a, b in zip(dims[:-1], dims[1:]))
 
 
-def backbone(stages, batch: int) -> float:
-    """DRP (7-entry stages, with their inverted-residual blocks) or
-    PointNet++ SSG (4-entry stages) set abstraction and the two feature
-    propagation stages."""
-    total, c = 0.0, 0
-    for st in stages:
-        npoint, _, nsample, widths = st[:4]
-        total += mlp(batch * npoint * nsample, [3 + c, *widths])
-        c = widths[-1]
-        rows = batch * npoint
-        for _ in range(st[4] if len(st) > 4 else 0):
-            total += 2 * mlp(rows, [3 + c, c])  # the lifted conv on the points and on the centers
-            total += mlp(rows, [c, 4 * c, c])
-    w = [s[3][-1] for s in stages]
-    total += mlp(batch * stages[2][0], [w[3] + w[2], 256, 256])
-    total += mlp(batch * stages[1][0], [256 + w[1], 256, 256])
-    return total
+def backbone_count(name: str, bench=None):
+    """The count file of backbone ``name``: ``<bench>/counts/backbones/<name>.py``
+    (with no ``bench``, this package's); raises naming the file where there is none."""
+    return load_named(Path(bench) / "counts" / "backbones" if bench else BACKBONES, name, "backbone count")
 
 
-def graspbalance_forward(model: dict, batch: int) -> float:
-    """``model``: the configuration's GraspBalance arguments."""
+def graspbalance_forward(model: dict, batch: int, num_points: int, bench=None) -> float:
+    """``model``: the configuration's GraspBalance arguments; ``batch``
+    clouds of ``num_points`` points."""
     s, v = model["num_seed"], model["num_view"]
     a, d = model["num_angle"], model["num_depth"]
-    total = backbone(model["backbone_stages"], batch)
+    total = backbone_count(model["backbone"], bench).forward(model["backbone_stages"], batch, num_points)
     total += mlp(batch * s, [SEED_FEATURES, SEED_FEATURES, 2 + v, 2 + v])
     total += N_SCALES * mlp(batch * s * d * WIDTH_K, [3, *WIDTH_MLP])
     total += mlp(batch * s * d, [N_SCALES * WIDTH_MLP[-1], 256]) + mlp(batch * s, [SEED_FEATURES, 256])

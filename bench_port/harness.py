@@ -4,13 +4,20 @@ A cell of ``BENCHMARK.json`` names a configuration (its ``file``, a JSON of
 the model's arguments under ``bench_port/configs/``) and a traffic mix
 (``bench_port/traffic/<traffic>.json``, whose ``generator`` names the
 general generator ``bench_port/traffic/<generator>.py`` that runs it).
+A configuration's ``model.backbone`` names its backbone's files: the
+reference backbone ``bench_port/reference/backbones/<backbone>.py`` (the
+module, its sampling contract and its tiny CPU stages) and its operation
+count ``bench_port/counts/backbones/<backbone>.py``.
 Every metric is a reader ``bench_port/metrics/<name>.py`` with a
 ``read(run)`` that takes it from what the generator recorded, or returns
 None when it finds nothing; a per-layer metric's ``workloads`` lists
-the cells that report it. The limits of a cell's correctness check are
-``bench_port/limits/<cell>.json``.
-A new cell, configuration, traffic mix or metric is a new file and a new
-entry; no file here names one.
+the cells that report it. A reader that names a kernel probe (``PROBE``)
+has the generator run ``bench_port/kernels/<probe>.py`` in a traced run on
+the card: it captures the kernel entry's inputs on the cell's own path,
+times them and counts their operations and bytes (``run.kernels``). The
+limits of a cell's correctness check are ``bench_port/limits/<cell>.json``.
+A new cell, configuration, traffic mix, metric, backbone or kernel probe is
+a new file and a new entry; no file here names one.
 """
 
 from __future__ import annotations
@@ -68,6 +75,45 @@ def load_cell(root: Path, name: str) -> Cell:
         end_to_end=e2e,
         per_layer=[m for m in manifest["per_layer"] if name in m["workloads"]],
     )
+
+
+_NAMED: dict = {}
+
+
+def load_named(directory: Path, name: str, what: str):
+    """The module ``<directory>/<name>.py``, chosen by a name in a
+    configuration or in ``BENCHMARK.json`` (``what`` says of what), loaded
+    once a process; raises naming the file it looked for where there is
+    none."""
+    path = Path(directory).resolve() / f"{name}.py"
+    if path not in _NAMED:
+        if not path.is_file():
+            raise ValueError(f"no {what} {name!r}: {path} does not exist")
+        _NAMED[path] = load_module(path, f"bench_port._named.{path.parent.name}.{name}")
+    return _NAMED[path]
+
+
+def probes(metrics: list, bench: Path) -> list[str]:
+    """The kernel probes that the readers of ``metrics`` name (a reader's
+    ``PROBE``), each once, in the metrics' order."""
+    names = []
+    for m in metrics:
+        probe = getattr(load_module(bench / "metrics" / f"{m['name']}.py"), "PROBE", None)
+        if probe and probe not in names:
+            names.append(probe)
+    return names
+
+
+def run_probes(cell: Cell, drive) -> dict:
+    """probe -> what its ``measure(drive)`` returned, for every probe that the
+    cell's per-layer metrics name and that found its kernel; ``drive()``
+    runs one call or step of the cell's own path."""
+    out = {}
+    for name in probes(cell.per_layer, cell.bench):
+        timed = load_named(cell.bench / "kernels", name, "kernel probe").measure(drive)
+        if timed is not None:
+            out[name] = timed
+    return out
 
 
 def read_metrics(metrics: list, run, bench: Path) -> dict:

@@ -1,9 +1,8 @@
 """The GraspBalance eval forward and its decode, plain PyTorch, float32:
-the DRP backbone (set abstraction + inverted-residual blocks + feature
-propagation) or the PointNet++ SSG backbone, object-balanced re-seeding,
-the graspable head, the multi-scale cylinder width grouping and the grasp
-parameter and tolerance heads. Module and parameter names are the
-program's.
+the configuration's backbone (``backbones/<name>.py``, found by its
+``model.backbone`` name), object-balanced re-seeding, the graspable head,
+the multi-scale cylinder width grouping and the grasp parameter and
+tolerance heads. Module and parameter names are the program's.
 
 ``GraspBalance.forward`` takes the seeds' top views as an argument when the
 caller gives them (``top_view_inds``): the check then holds the program's
@@ -13,9 +12,12 @@ and compares every head output at the same views.
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import torch
 from torch import nn
 
+from bench_port.harness import load_named
 from bench_port.reference import labels as ref_labels
 from bench_port.reference import ops
 from bench_port.reference.layers import Dense, MLPBlock, SharedMLP, einsum
@@ -23,105 +25,13 @@ from bench_port.reference.postprocess import object_balance_indices
 
 SEED_FEATURES = 256
 SCALES = (0.25, 0.5, 0.75, 1.0)
+BACKBONES = Path(__file__).resolve().parent / "backbones"
 
 
-class SetAbstraction(nn.Module):
-    """Ball-query grouping at the given centers, offsets divided by the
-    radius and joined to the features, shared MLP, max over K."""
-
-    def __init__(self, in_features, radius, nsample, mlp):
-        super().__init__()
-        self.radius, self.nsample = radius, nsample
-        self.mlp = SharedMLP(3 + in_features, mlp)
-
-    def forward(self, xyz, features, inds):
-        new_xyz = ops.gather_points(xyz, inds)
-        idx = ops.ball_query(xyz, new_xyz, self.radius, self.nsample)
-        grouped = (ops.group_points(xyz, idx) - new_xyz.unsqueeze(2)) / self.radius
-        if features is not None:
-            grouped = torch.cat([grouped, ops.group_points(features, idx)], dim=-1)
-        return new_xyz, self.mlp(grouped).amax(dim=2)
-
-
-class FeaturePropagation(nn.Module):
-    def __init__(self, in_features, mlp):
-        super().__init__()
-        self.mlp = SharedMLP(in_features, mlp)
-
-    def forward(self, unknown, known, unknown_feats, known_feats):
-        interp = ops.interpolate_features(unknown, known, known_feats)
-        if unknown_feats is not None:
-            interp = torch.cat([interp, unknown_feats], dim=-1)
-        return self.mlp(interp)
-
-
-class LocalAggregation(nn.Module):
-    """Ball query, [p_j - c_i, f_j] through one conv block, max over K; the
-    block's linear layer applied before the gather (it commutes with it:
-    ``[p_j - c_i, f_j] @ W == [p_j, f_j] @ W - [c_i, 0] @ W``)."""
-
-    def __init__(self, channels, radius, nsample):
-        super().__init__()
-        self.radius, self.nsample = radius, nsample
-        self.conv = MLPBlock(3 + channels, channels)
-
-    def forward(self, xyz, feats):
-        idx = ops.ball_query(xyz, xyz, self.radius, self.nsample)
-        e = self.conv.dense(torch.cat([xyz, feats], dim=-1))
-        cw = self.conv.dense(torch.cat([xyz, torch.zeros_like(feats)], dim=-1))
-        pre = ops.group_points(e, idx) - cw.unsqueeze(2)
-        return self.conv.post(pre).amax(dim=2)
-
-
-class InvResMLP(nn.Module):
-    def __init__(self, channels, radius, nsample):
-        super().__init__()
-        self.local_agg = LocalAggregation(channels, radius, nsample)
-        self.pw1 = MLPBlock(channels, channels * 4)
-        self.pw2 = MLPBlock(channels * 4, channels, act=False)
-
-    def forward(self, xyz, feats):
-        return torch.relu(self.pw2(self.pw1(self.local_agg(xyz, feats))) + feats)
-
-
-class Backbone(nn.Module):
-    """DRP (stages of 7: npoint, radius, nsample, mlp, blocks, block radius,
-    block nsample) or PointNet++ SSG (stages of 4, no blocks). One FPS of
-    the first stage's npoint serves every stage: stage i takes the first
-    npoint of its order."""
-
-    def __init__(self, stages, num_seed):
-        super().__init__()
-        self.stages = [list(s) for s in stages]
-        self.num_seed = num_seed
-        c = 0
-        for i, st in enumerate(self.stages):
-            _, radius, nsample, mlp = st[:4]
-            self.add_module(f"sa{i + 1}", SetAbstraction(c, radius, nsample, mlp))
-            c = mlp[-1]
-            if len(st) > 4:
-                for j in range(st[4]):
-                    self.add_module(f"block{i + 1}_{j}", InvResMLP(c, st[5], st[6]))
-        widths = [s[3][-1] for s in self.stages]
-        self.fp1 = FeaturePropagation(widths[3] + widths[2], (256, 256))
-        self.fp2 = FeaturePropagation(256 + widths[1], (256, 256))
-
-    def forward(self, xyz, sa_inds):
-        out = {"input_xyz": xyz, "sa1_inds": sa_inds}
-        stage_xyz, stage_feats = [], []
-        cur_xyz, cur_feats = xyz, None
-        for i, st in enumerate(self.stages):
-            inds = sa_inds if i == 0 else torch.arange(st[0], device=xyz.device).expand(xyz.shape[0], st[0])
-            cur_xyz, cur_feats = getattr(self, f"sa{i + 1}")(cur_xyz, cur_feats, inds)
-            for j in range(st[4] if len(st) > 4 else 0):
-                cur_feats = getattr(self, f"block{i + 1}_{j}")(cur_xyz, cur_feats)
-            stage_xyz.append(cur_xyz)
-            stage_feats.append(cur_feats)
-        f = self.fp1(stage_xyz[2], stage_xyz[3], stage_feats[2], stage_feats[3])
-        out["fp2_features"] = self.fp2(stage_xyz[1], stage_xyz[2], stage_feats[1], f)
-        out["fp2_xyz"] = stage_xyz[1]
-        out["fp2_inds"] = sa_inds[:, : self.num_seed]
-        return out
+def backbone_file(name: str, bench=None):
+    """The reference backbone file of ``name``: ``<bench>/reference/backbones/<name>.py``
+    (with no ``bench``, this package's); raises naming the file where there is none."""
+    return load_named(Path(bench) / "reference" / "backbones" if bench else BACKBONES, name, "reference backbone")
 
 
 class GraspableDetection(nn.Module):
@@ -203,14 +113,17 @@ class ToleranceHead(nn.Module):
 class GraspBalance(nn.Module):
     """The program's ``GraspBalance`` constructor arguments that the
     benchmark's configurations set (the multi-scale model, index-order
-    queries)."""
+    queries); ``bench`` is the benchmark's directory whose
+    ``reference/backbones/`` holds the backbone's file (this package's by
+    default)."""
 
-    def __init__(self, *, backbone_stages, num_view=300, num_angle=12, num_depth=4, cylinder_radius=0.08,
-                 hmin=-0.02, hmax_list=(0.01, 0.02, 0.03, 0.04), num_seed=1024, backbone="drp"):
+    def __init__(self, *, backbone, backbone_stages, num_view=300, num_angle=12, num_depth=4, cylinder_radius=0.08,
+                 hmin=-0.02, hmax_list=(0.01, 0.02, 0.03, 0.04), num_seed=1024, bench=None):
         super().__init__()
         if len(hmax_list) != num_depth:
             raise ValueError("hmax_list needs num_depth entries")
-        self.backbone = Backbone(backbone_stages, num_seed)
+        self.backbone_name = backbone
+        self.backbone = backbone_file(backbone, bench).Backbone(backbone_stages, num_seed)
         self.graspable = GraspableDetection(num_view)
         self.width_grouping = MultiScaleWidthGrouping(cylinder_radius, hmin, hmax_list, SCALES)
         self.fuse_multi_scale = Dense(self.width_grouping.out_features, 256)
@@ -219,8 +132,10 @@ class GraspBalance(nn.Module):
         self.tolerance = ToleranceHead(num_angle)
 
     @torch.no_grad()
-    def forward(self, xyz, sa_inds, *, seed_cluster=None, top_view_inds=None):
-        ep = self.backbone(xyz, sa_inds)
+    def forward(self, xyz, sampled, *, seed_cluster=None, top_view_inds=None):
+        """``sampled``: the indices the backbone takes from the raw cloud
+        (its ``SAMPLED`` keys)."""
+        ep = self.backbone(xyz, sampled)
         seed_xyz, seed_features = ep["fp2_xyz"], ep["fp2_features"]
         if seed_cluster is not None:
             obs_inds = object_balance_indices(xyz, seed_cluster, num_seed=self.backbone.num_seed)
@@ -234,11 +149,12 @@ class GraspBalance(nn.Module):
 
     def forward_train(self, batch):
         """The training forward (the module in train mode: batch
-        statistics) on a batch with its label tensors: the backbone from its
-        own FPS, the graspable head, label matching at the seeds' top views,
-        then stage 2 at the matched label points and views."""
+        statistics) on a batch with its label tensors: the backbone on its
+        own sampling of the cloud (its contract), the graspable head, label
+        matching at the seeds' top views, then stage 2 at the matched label
+        points and views."""
         xyz = batch["point_clouds"]
-        ep = self.backbone(xyz, ops.furthest_point_sample(xyz, self.backbone.stages[0][0]))
+        ep = self.backbone(xyz, self.backbone.sample(xyz))
         ep.update(self.graspable(ep["fp2_features"]))
         ep.update(ref_labels.match_labels(ep["fp2_xyz"], ep["grasp_top_view_inds"], batch))
         return self._stage2(ep, ep["batch_grasp_point"], ep["batch_grasp_view_rot"])

@@ -1,6 +1,7 @@
 """The benchmark's operation counts against FlopCounterMode's count of the
-plain reference's forward, and the width-MLP kernel's count against the
-kernel table's (chip_smoke.py, K5 at bs=4)."""
+plain reference's forward, each configuration through its backbone's files
+(the reference backbone and its count), and the width-MLP kernel's count
+against the kernel table's (chip_smoke.py, K5 at bs=4)."""
 
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ from bench_port.counts import kernels, model
 from bench_port.reference import dsn as ref_dsn
 from bench_port.reference import models as ref_models
 from bench_port.reference import ops
-from bench_port.tests.tiny import tiny_config
+from bench_port.tests.tiny import MANIFEST, tiny_config
 
 
 def _cloud(b, n, seed=0):
@@ -20,16 +21,16 @@ def _cloud(b, n, seed=0):
     return torch.rand((b, n, 3), generator=g) * 0.4 + torch.tensor([-0.2, -0.2, 0.3])
 
 
-@pytest.mark.parametrize("name", ["graspbalance-drp", "graspbalance-pointnet2"])
+@pytest.mark.parametrize("name", [c["name"] for c in MANIFEST["configs"]])
 def test_model_flops_equal_the_counter(name):
     cfg = tiny_config(name)
     b, n = 2, 256
     m = ref_models.GraspBalance(**cfg["model"]).eval()
     xyz = _cloud(b, n)
-    sa = ops.furthest_point_sample(xyz, cfg["model"]["backbone_stages"][0][0])
+    sampled = m.backbone.sample(xyz)
     with FlopCounterMode(display=False) as fc:
-        m(xyz, sa)
-    assert fc.get_total_flops() == model.graspbalance_forward(cfg["model"], b)
+        m(xyz, sampled)
+    assert fc.get_total_flops() == model.graspbalance_forward(cfg["model"], b, n)
 
 
 def test_dsn_flops_equal_the_counter():
@@ -55,17 +56,18 @@ def test_widthmlp_count_at_the_path_shapes():
 
 
 def test_full_size_counts():
-    """The counts of the cells' shapes, to the GFLOP (recorded in PERF.md)."""
+    """The counts of the cells' shapes (recorded in PERF.md), to the FLOP."""
     import json
     from pathlib import Path
 
     root = Path(__file__).resolve().parents[2]
     drp = json.loads((root / "bench_port/configs/graspbalance-drp.json").read_text())
     pn2 = json.loads((root / "bench_port/configs/graspbalance-pointnet2.json").read_text())
-    g_drp = model.graspbalance_forward(drp["model"], 4) / 1e9
-    g_pn2 = model.graspbalance_forward(pn2["model"], 4) / 1e9
-    g_dsn = model.dsn_forward(drp["dsn"]["pt_stages"], 4, 20000) / 1e9
+    counts = (model.graspbalance_forward(drp["model"], 4, 20000), model.graspbalance_forward(pn2["model"], 4, 20000),
+              model.dsn_forward(drp["dsn"]["pt_stages"], 4, 20000))
+    g_drp, g_pn2, g_dsn = (c / 1e9 for c in counts)
     assert 400 < g_drp < 1000 and 300 < g_pn2 < g_drp and 10 < g_dsn < 200, (g_drp, g_pn2, g_dsn)
+    assert counts == (453_034_672_128, 400_548_200_448, 23_361_536_000)
 
 
 def test_scatter_count_is_the_kernel_tables():

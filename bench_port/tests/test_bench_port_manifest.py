@@ -1,6 +1,7 @@
 """BENCHMARK.json against the benchmark's contract, and the harness's
 files: every cell finds its configuration, traffic mix, generator, limits and
-metric readers by name."""
+metric readers by name, every configuration its backbone's reference and
+count files, every roofline reader its kernel probe."""
 
 from __future__ import annotations
 
@@ -81,6 +82,39 @@ def test_configs_reference_files_and_widths():
     assert used == {c["name"] for c in MANIFEST["configs"]}
 
 
+@pytest.mark.parametrize("config", [c["name"] for c in MANIFEST["configs"]])
+def test_config_names_its_backbone_files(config):
+    from bench_port.counts.model import backbone_count
+    from bench_port.reference.models import backbone_file
+
+    entry = next(c for c in MANIFEST["configs"] if c["name"] == config)
+    name = json.loads((REPO / entry["file"]).read_text())["model"]["backbone"]
+    assert (BENCH / "reference" / "backbones" / f"{name}.py").is_file()
+    assert (BENCH / "counts" / "backbones" / f"{name}.py").is_file()
+    backbone = backbone_file(name).Backbone
+    assert backbone.SAMPLED and callable(backbone.sample) and backbone_file(name).TINY_STAGES
+    assert callable(backbone_count(name).forward)
+
+
+def test_unknown_backbone_names_the_file_it_looked_for():
+    from bench_port.counts.model import backbone_count
+    from bench_port.reference.models import GraspBalance
+
+    with pytest.raises(ValueError, match="reference/backbones/no_such_backbone.py"):
+        GraspBalance(backbone="no_such_backbone", backbone_stages=[])
+    with pytest.raises(ValueError, match="counts/backbones/no_such_backbone.py"):
+        backbone_count("no_such_backbone")
+
+
+@pytest.mark.parametrize("metric", [m["name"] for m in MANIFEST["per_layer"] if m["name"].endswith("_roofline")])
+def test_roofline_reader_names_its_probe(metric):
+    from bench_port import harness
+
+    probe = getattr(harness.load_module(BENCH / "metrics" / f"{metric}.py"), "PROBE", None)
+    assert probe and (BENCH / "kernels" / f"{probe}.py").is_file(), (metric, probe)
+    assert callable(harness.load_module(BENCH / "kernels" / f"{probe}.py").measure)
+
+
 def test_every_metric_moves_an_e2e_metric_of_its_cells():
     e2e = {m["name"]: m for m in MANIFEST["end_to_end"]}
     for m in MANIFEST["per_layer"]:
@@ -123,8 +157,9 @@ from pathlib import Path
 from bench_port import harness, run, control
 from bench_port.reference import dsn, layers, models, ops, postprocess
 bench = Path({root!r}) / "bench_port"
-for f in sorted((bench / "traffic").glob("*.py")) + sorted((bench / "metrics").glob("*.py")):
-    harness.load_module(f)
+for d in ("traffic", "metrics", "kernels", "reference/backbones", "counts/backbones"):
+    for f in sorted((bench / d).glob("*.py")):
+        harness.load_module(f)
 print(" ".join(sorted({{m.split(".")[0] for m in sys.modules}})))
 """
 
@@ -139,7 +174,9 @@ def test_no_jax_is_imported():
 
 def test_reference_loads_nothing_of_the_program():
     code = (f"import sys; sys.path.insert(0, {str(REPO)!r}); "
+            "from pathlib import Path; "
             "from bench_port.reference import dsn, layers, models, ops, postprocess; "
+            "[models.backbone_file(f.stem) for f in Path(models.BACKBONES).glob('*.py') if f.stem != '__init__']; "
             "print(' '.join(sorted({m.split('.')[0] for m in sys.modules})))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr

@@ -19,7 +19,8 @@ from bench_port import program_trace, run
 from bench_port.tests.tiny import make_checkout
 
 SEED = 2**31 + 4242
-SERVE = {"tiny-drp-obs": ("dispatch_ms.obs", "sync_wait_ms.obs"), "tiny-pn2": ("dispatch_ms.serve", "sync_wait_ms.serve")}
+SERVE = {"tiny-drp-obs.serve.b4": ("dispatch_ms.obs", "sync_wait_ms.obs"),
+         "tiny-pn2.serve.b4": ("dispatch_ms.serve", "sync_wait_ms.serve")}
 
 
 @pytest.fixture(scope="module")
@@ -48,13 +49,13 @@ def test_traced_serving_run_reports_dispatch_and_waits(checkout, cell, monkeypat
     assert counters["sync.upload"] == 1 and counters["sync.copy_out"] == 2
     assert counters["sync.nms"] == counters["nms.sweeps"] >= 1
     assert spans["gb.call"]["wait_ms"] == pytest.approx(wait)
-    assert ("gb.obs_reseed" in spans) == (cell == "tiny-drp-obs")
+    assert ("gb.obs_reseed" in spans) == (cell == "tiny-drp-obs.serve.b4")
     assert window["top_level"] == ["gb.call"] and window["ops"] == 0  # no device on the CPU
 
 
 def test_traced_training_run_holds_the_step_spans(checkout, monkeypatch):
-    _command(monkeypatch, "tiny-drp-train")
-    result, r = run.run_cell(checkout, "tiny-drp-train", SEED, 1.0, True, device="cpu")
+    _command(monkeypatch, "tiny-drp.train.b8")
+    result, r = run.run_cell(checkout, "tiny-drp.train.b8", SEED, 1.0, True, device="cpu")
     assert result["correct"], result["checks"]
     spans = result["notes"]["program_spans"]
     assert {"gb.train_step", "gb.transfer", "gb.make_batch", "gb.label_expand", "gb.label_match",
@@ -68,8 +69,8 @@ def test_untraced_run_never_switches_the_tracer_on(checkout, monkeypatch):
 
     switched = []
     monkeypatch.setattr(trace, "enable", lambda **kw: switched.append(kw))
-    _command(monkeypatch, "tiny-pn2")
-    for cell in ("tiny-pn2", "tiny-drp-train"):
+    _command(monkeypatch, "tiny-pn2.serve.b4")
+    for cell in ("tiny-pn2.serve.b4", "tiny-drp.train.b8"):
         result, r = run.run_cell(checkout, cell, SEED, 1.0, False, device="cpu")
         assert result["correct"] and not switched
         assert getattr(r, "program", None) is None and "program_spans" not in result["notes"]
@@ -77,15 +78,15 @@ def test_untraced_run_never_switches_the_tracer_on(checkout, monkeypatch):
 
 def test_program_without_the_tracer_gives_nothing(checkout, monkeypatch):
     monkeypatch.setattr(program_trace, "program_has_tracer", lambda: False)
-    _command(monkeypatch, "tiny-pn2")
-    result, r = run.run_cell(checkout, "tiny-pn2", SEED, 1.0, True, device="cpu")
+    _command(monkeypatch, "tiny-pn2.serve.b4")
+    result, r = run.run_cell(checkout, "tiny-pn2.serve.b4", SEED, 1.0, True, device="cpu")
     assert result["correct"] and r.program == {}
     assert not {"dispatch_ms.serve", "sync_wait_ms.serve"} & set(result["metrics"])
 
 
 def test_without_the_command_line_nothing_is_measured(checkout, monkeypatch):
     monkeypatch.setattr(sys, "argv", ["pytest"])
-    result, r = run.run_cell(checkout, "tiny-pn2", SEED, 1.0, True, device="cpu")
+    result, r = run.run_cell(checkout, "tiny-pn2.serve.b4", SEED, 1.0, True, device="cpu")
     assert r.program == {} and "dispatch_ms.serve" not in result["metrics"]
 
 
@@ -93,7 +94,7 @@ def test_without_the_command_line_nothing_is_measured(checkout, monkeypatch):
 def test_tiny_cells_trace_the_program_on_the_card(checkout, monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    for cell, names in [*SERVE.items(), ("tiny-drp-train", ("label_ms.train",))]:
+    for cell, names in [*SERVE.items(), ("tiny-drp.train.b8", ("label_ms.train",))]:
         _command(monkeypatch, cell)
         result, _ = run.run_cell(checkout, cell, SEED, 2.0, True, device="cuda")
         assert result["correct"], result["checks"]

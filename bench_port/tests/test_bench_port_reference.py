@@ -14,9 +14,8 @@ import torch
 from bench_port import harness
 from bench_port.reference import dsn as ref_dsn
 from bench_port.reference import models as ref_models
-from bench_port.reference import ops
 from bench_port.reference import postprocess as ref_post
-from bench_port.tests.tiny import make_checkout
+from bench_port.tests.tiny import make_checkout, tiny_cells
 
 TOL = 1e-5
 
@@ -33,36 +32,38 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-@pytest.mark.parametrize("cell_name,obs", [("tiny-drp-obs", True), ("tiny-pn2", False)])
-def test_reference_follows_the_program(tmp_path, cell_name, obs):
+@pytest.mark.parametrize("cell_name", tiny_cells("serve"))
+def test_reference_follows_the_program(tmp_path, cell_name):
+    """Each serving cell's configuration, through its backbone's reference
+    file and sampling contract."""
     cell = harness.load_cell(make_checkout(tmp_path), cell_name)
     gen = cell.generator()
+    obs = cell.traffic["use_obs"]
     inputs = gen.make_inputs(cell, 11, torch.device("cpu"))
     infer = gen.build_program(cell, inputs, "cpu")
-    ref, d_ref = gen.reference_modules(cell.config, obs, "cpu")
+    ref, d_ref = gen.reference_modules(cell, obs, "cpu")
     ref.load_state_dict(inputs.state)
     if obs:
         d_ref.load_state_dict(inputs.dsn_state)
-    cfg = cell.config
     clouds, gumbel = inputs.clouds[1], inputs.gumbel[1]
     xyz = torch.from_numpy(clouds)
 
-    n_sa = cfg["model"]["backbone_stages"][0][0]
-    sa = ops.furthest_point_sample(xyz, n_sa)
     labels = None
     with torch.no_grad():
+        sampled, shared = gen.reference_sample(ref, d_ref, xyz)
         if obs:
             got_labels, got_sa = infer.segment(xyz, gumbel=gumbel)
-            assert torch.equal(got_sa, sa)
-            fg, off = d_ref(xyz, sa)
-            ep_d = infer.dsn(xyz, sa_inds=sa)
+            assert torch.equal(got_sa, sampled[ref.backbone.SAMPLED[0]])
+            dsn_sa = shared[:, : d_ref.pt_stages[0][0]]
+            fg, off = d_ref(xyz, dsn_sa)
+            ep_d = infer.dsn(xyz, sa_inds=dsn_sa)
             assert close(ep_d["foreground_logits"], fg) and close(ep_d["center_offsets"], off)
             labels = ref_dsn.cluster(xyz, off, fg, gumbel)
             assert torch.equal(got_labels, labels)
             assert int(labels.max()) >= 1  # the mean shift found objects
-        ep = ref(xyz, sa, seed_cluster=labels)
+        ep = ref(xyz, sampled, seed_cluster=labels)
         got = infer.forward(xyz, gumbel=gumbel)
-    for key in ("sa1_inds", "fp2_inds", "grasp_top_view_inds"):
+    for key in (*ref.backbone.SAMPLED, "fp2_inds", "grasp_top_view_inds"):
         assert torch.equal(got[key], ep[key]), key
     for key in ("objectness_score", "view_score", "grasp_score_pred", "grasp_angle_cls_pred", "grasp_width_pred",
                 "grasp_tolerance_pred", "fp2_xyz"):

@@ -18,7 +18,7 @@ from bench_port import control, run
 from bench_port.tests.tiny import make_checkout
 
 SEED = 2**31 + 977
-CELLS = ("tiny-drp-obs", "tiny-pn2")
+CELLS = ("tiny-drp-obs.serve.b4", "tiny-pn2.serve.b4")
 
 
 @pytest.fixture(scope="module")
@@ -42,7 +42,8 @@ def checkout(tmp_path_factory):
 def test_added_cell_runs_and_is_correct(checkout, cell):
     result, r = run.run_cell(checkout, cell, SEED, 1.0, False, device="cpu")
     assert result["correct"], result["checks"]
-    rate = {"tiny-drp-obs": {"scenes_per_s.obs", "call_p95_ms.obs"}, "tiny-pn2": {"scenes_per_s", "call_p95_ms"}}
+    rate = {"tiny-drp-obs.serve.b4": {"scenes_per_s.obs", "call_p95_ms.obs"},
+            "tiny-pn2.serve.b4": {"scenes_per_s", "call_p95_ms"}}
     assert set(result["metrics"]) == rate[cell] | {"setup_s", "calls_n"}
     assert result["metrics"]["calls_n"]["value"] == result["attempted"] > 0
     assert list(result)[-1] == "checks"
@@ -50,7 +51,7 @@ def test_added_cell_runs_and_is_correct(checkout, cell):
     assert "empty_reader" not in traced["metrics"]  # a reader that finds nothing leaves its metric out
 
 
-@pytest.mark.parametrize("cell", CELLS + ("tiny-drp-train",))
+@pytest.mark.parametrize("cell", CELLS + ("tiny-drp.train.b8",))
 def test_control_is_not_correct(checkout, cell):
     out = control.readings(checkout, cell, SEED + 1, program=True, device="cpu")
     prog_pass = all(v <= lim for v, lim in out["program"].values())
@@ -59,7 +60,7 @@ def test_control_is_not_correct(checkout, cell):
 
 
 def test_training_cell_runs_and_is_correct(checkout):
-    result, r = run.run_cell(checkout, "tiny-drp-train", SEED, 1.0, False, device="cpu")
+    result, r = run.run_cell(checkout, "tiny-drp.train.b8", SEED, 1.0, False, device="cpu")
     assert result["correct"], result["checks"]
     assert {"train_clouds_per_s", "setup_s"} <= set(result["metrics"]) and result["attempted"] > 0
     assert set(result["checks"]) == {"loss1_err", "metric1_err", "grad_gap", "change_gap"}
@@ -87,7 +88,7 @@ def _train_fault(monkeypatch, kind):
 @pytest.mark.parametrize("kind", ["half_batch", "unchanged"])
 def test_training_fault_is_not_correct(checkout, kind, monkeypatch):
     _train_fault(monkeypatch, kind)
-    result, _ = run.run_cell(checkout, "tiny-drp-train", SEED + 3, 1.0, False, device="cpu")
+    result, _ = run.run_cell(checkout, "tiny-drp.train.b8", SEED + 3, 1.0, False, device="cpu")
     assert not result["correct"], result["checks"]
 
 
@@ -175,7 +176,7 @@ FAULTS = {"stale": _stale, "half_batch": _half_batch, "altered_grasp": _altered_
 @pytest.mark.parametrize("fault", sorted(FAULTS))
 @pytest.mark.parametrize("cell", CELLS)
 def test_planted_fault_is_not_correct(checkout, cell, fault, monkeypatch):
-    if fault == "altered_label" and cell == "tiny-pn2":
+    if fault == "altered_label" and cell == "tiny-pn2.serve.b4":
         pytest.skip("the cell runs no segmentation")
     FAULTS[fault](monkeypatch)
     result, _ = run.run_cell(checkout, cell, SEED + 2, 2.0, False, device="cpu")
@@ -186,7 +187,7 @@ def test_planted_fault_is_not_correct(checkout, cell, fault, monkeypatch):
 def test_tiny_cells_on_the_card(checkout):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    for cell in CELLS + ("tiny-drp-train",):
+    for cell in CELLS + ("tiny-drp.train.b8",):
         result, _ = run.run_cell(checkout, cell, SEED, 2.0, True, device="cuda")
         assert result["correct"], result["checks"]
         assert result["device"]["busy_s"] > 0

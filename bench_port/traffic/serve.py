@@ -10,11 +10,17 @@ reference checks (drawn from the seed). The mean-shift noise of every pool
 batch is drawn from the seed in set-up and passed to the call, so that the
 program and the reference draw the same.
 
+The backbone's sampling contract (``reference/backbones/``) says which
+indices it takes from the raw cloud. With OBS the DSN and the backbone share
+one FPS of the cloud, the backbone taking its ``fps_prefix``: a backbone
+whose contract is not such a prefix is refused on an OBS cell.
+
 The check (``check``) follows the program stage by stage, each stage's
 reference computed from what the program handed it, and each stage judged
 by itself:
 
-  fps_mismatch     the shared FPS indices against the reference's FPS of the cloud
+  fps_mismatch     the indices the backbone's contract takes from the cloud
+                   (with OBS the shared FPS) against the reference's
   dsn_err          the DSN's foreground logits and center offsets against the
                    reference DSN's, max |a - b| / max |b| (OBS only)
   label_mismatch   instance labels against the reference's mean shift over the
@@ -43,8 +49,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from bench_port import host, scenes, tracing, weights
-from bench_port.counts import kernels as kernel_counts
+from bench_port import harness, host, scenes, tracing, weights
 from bench_port.counts import model as model_counts
 from bench_port.reference import dsn as ref_dsn_mod
 from bench_port.reference import models as ref_models
@@ -52,21 +57,47 @@ from bench_port.reference import ops as ref_ops
 from bench_port.reference import postprocess as ref_post
 from bench_port.reference.layers import tf32_products
 
-EP_KEYS = ("sa1_inds", "fp2_inds", "fp2_xyz", "objectness_score", "view_score", "grasp_top_view_inds",
-           "grasp_top_view_xyz", "grasp_score_pred", "grasp_angle_cls_pred", "grasp_width_pred",
-           "grasp_tolerance_pred")
+EP_KEYS = ("fp2_inds", "fp2_xyz", "objectness_score", "view_score", "grasp_top_view_inds", "grasp_top_view_xyz",
+           "grasp_score_pred", "grasp_angle_cls_pred", "grasp_width_pred", "grasp_tolerance_pred")
 HEAD_KEYS = ("objectness_score", "view_score", "grasp_score_pred", "grasp_angle_cls_pred", "grasp_width_pred",
              "grasp_tolerance_pred")
 MEANSHIFT_SEEDS = 50
 MEANSHIFT_SUBSAMPLE = 5
 
 
-def reference_modules(config: dict, use_obs: bool, device):
-    """The reference model (and DSN) for ``config``, on ``device``."""
+def reference_modules(cell, use_obs: bool, device):
+    """The reference model (and DSN) of the cell's configuration, on
+    ``device``. With ``use_obs``, refused where the backbone's sampling
+    contract is not a prefix of one FPS of the raw cloud, which the DSN
+    would share."""
+    config = cell.config
     with torch.device(device):
-        model = ref_models.GraspBalance(**config["model"]).eval()
+        model = ref_models.GraspBalance(**config["model"], bench=cell.bench).eval()
         dsn = ref_dsn_mod.DSN(config["dsn"]["pt_stages"]).eval() if use_obs else None
+    if use_obs and model.backbone.fps_prefix is None:
+        raise ValueError(f"backbone {model.backbone_name!r} takes {', '.join(model.backbone.SAMPLED) or 'nothing'} "
+                         "from the raw cloud, not a prefix of one FPS of it: an OBS cell shares one FPS between "
+                         "the DSN and the backbone")
     return model, dsn
+
+
+def ep_keys(cell) -> tuple:
+    """The end points the check reads: the indices the backbone's contract
+    samples, and the seeds' and the heads'."""
+    backbone = ref_models.backbone_file(cell.config["model"]["backbone"], cell.bench).Backbone
+    return tuple(backbone.SAMPLED) + EP_KEYS
+
+
+def reference_sample(model, dsn, cloud):
+    """The reference's sampling of the raw cloud: {key: indices} of the
+    backbone's contract, and with a DSN the one FPS both networks share
+    (else None), the DSN taking its first stage's npoint and the backbone
+    its ``fps_prefix``, as the program's OBS path samples."""
+    bb = model.backbone
+    if dsn is None:
+        return bb.sample(cloud), None
+    shared = ref_ops.furthest_point_sample(cloud, max(bb.fps_prefix, dsn.pt_stages[0][0]))
+    return {bb.SAMPLED[0]: shared[:, : bb.fps_prefix]}, shared
 
 
 def make_inputs(cell, seed: int, device):
@@ -74,7 +105,7 @@ def make_inputs(cell, seed: int, device):
     scene pool as (n_batches, batch, N, 3) numpy clouds, and each batch's
     mean-shift noise."""
     tr = cell.traffic
-    model_m, dsn_m = reference_modules(cell.config, tr["use_obs"], "meta")
+    model_m, dsn_m = reference_modules(cell, tr["use_obs"], "meta")
     state = weights.random_state(weights.shapes_of(model_m), seed, device, salt=1)
     dsn_state = weights.random_state(weights.shapes_of(dsn_m), seed, device, salt=2) if dsn_m is not None else None
     clouds, counts = scenes.cloud_pool(seed, tr["pool"], tr["num_points"], tuple(tr["objects"]))
@@ -103,16 +134,15 @@ def calibrate(cell, inputs, device) -> None:
     valid grasp or all. The reference computes the logits, on one scene."""
     cal = cell.config["calibrate"]
     use_obs = inputs.dsn_state is not None
-    model, dsn = reference_modules(cell.config, use_obs, device)
+    model, dsn = reference_modules(cell, use_obs, device)
     model.load_state_dict(inputs.state)
     xyz = torch.from_numpy(inputs.clouds[0, :1]).to(device)
-    n_sa = cell.config["model"]["backbone_stages"][0][0]
-    sa = ref_ops.furthest_point_sample(xyz, max(n_sa, dsn.pt_stages[0][0] if use_obs else 0))
-    ep = model.backbone(xyz, sa[:, :n_sa])
+    sampled, shared = reference_sample(model, dsn, xyz)
+    ep = model.backbone(xyz, sampled)
     feats = ep["fp2_features"]
     if use_obs:
         dsn.load_state_dict(inputs.dsn_state)
-        fg, off = dsn(xyz, sa[:, : dsn.pt_stages[0][0]])
+        fg, off = dsn(xyz, shared[:, : dsn.pt_stages[0][0]])
         d = (fg[..., 1] - fg[..., 0]).flatten()
         inputs.dsn_state["fg2.bias"][1] -= torch.quantile(d, 1.0 - cal["foreground_share"])
         fg[..., 1] -= torch.quantile(d, 1.0 - cal["foreground_share"])
@@ -144,8 +174,8 @@ class Capture:
     handed on: the shared FPS, the DSN's outputs, the labels, the model's
     end points (references to the device tensors; nothing is copied)."""
 
-    def __init__(self, infer):
-        self.on, self.rec = False, {}
+    def __init__(self, infer, keys):
+        self.on, self.rec, self.keys = False, {}, keys
         if infer.use_obs:
             infer.sample = self._keep(infer.sample, "sa")
             infer.segment = self._keep(infer.segment, "labels", first=True)
@@ -167,7 +197,7 @@ class Capture:
 
     def _model_hook(self, module, args, out):
         if self.on:
-            self.rec["ep"] = {k: out[k] for k in EP_KEYS}
+            self.rec["ep"] = {k: out[k] for k in self.keys}
 
     def take(self):
         rec, self.rec = self.rec, {}
@@ -180,21 +210,22 @@ def rel_err(a, b) -> float:
     return d / scale if np.isfinite(d) else float("inf")
 
 
-def judge_one(rec, cloud, gumbel, model, dsn, n_sa: int, values: dict) -> None:
+def judge_one(rec, cloud, gumbel, model, dsn, values: dict) -> None:
     """Add one checked call's numbers to ``values`` (counts summed, errors
     maxed). ``rec``: the program's stages (``Capture``) and its answer."""
     ep = rec["ep"]
-    sa = rec.get("sa", ep["sa1_inds"])
-    ref_sa = ref_ops.furthest_point_sample(cloud, n_sa)
-    values["fps_mismatch"] += int((sa.to(ref_sa.device) != ref_sa).sum())
+    sampled, shared = reference_sample(model, dsn, cloud)
+    pairs = [(rec["sa"], shared)] if dsn is not None else [(ep[k], v) for k, v in sampled.items()]
+    values["fps_mismatch"] += sum(int((got.to(want.device) != want).sum()) for got, want in pairs)
     labels = None
     if dsn is not None:
-        fg, off = dsn(cloud, ref_sa[:, : dsn.pt_stages[0][0]])
+        fg, off = dsn(cloud, shared[:, : dsn.pt_stages[0][0]])
         values["dsn_err"] = max(values["dsn_err"], rel_err(rec["fg"], fg), rel_err(rec["off"], off))
         labels = rec["labels"]
         ref_labels = ref_dsn_mod.cluster(cloud, rec["off"], rec["fg"], gumbel)
         values["label_mismatch"] += int((ref_labels != labels).sum())
-    ref_ep = model(cloud, ep["sa1_inds"], seed_cluster=labels, top_view_inds=ep["grasp_top_view_inds"])
+    ref_ep = model(cloud, {k: ep[k] for k in model.backbone.SAMPLED}, seed_cluster=labels,
+                   top_view_inds=ep["grasp_top_view_inds"])
     seeds_off = ((ref_ep["fp2_inds"] != ep["fp2_inds"]) | (ref_ep["fp2_xyz"] != ep["fp2_xyz"]).any(dim=-1)
                  | (ref_ep["grasp_top_view_xyz"] != ep["grasp_top_view_xyz"]).any(dim=-1))
     values["seed_mismatch"] += int(seeds_off.sum())
@@ -218,7 +249,7 @@ def check(cell, inputs, records, device, due: int) -> dict:
     due counts one). Runs the
     reference layer by layer, after the program's state is freed."""
     use_obs = cell.traffic["use_obs"]
-    model, dsn = reference_modules(cell.config, use_obs, device)
+    model, dsn = reference_modules(cell, use_obs, device)
     model.load_state_dict(inputs.state)
     if dsn is not None:
         dsn.load_state_dict(inputs.dsn_state)
@@ -227,9 +258,6 @@ def check(cell, inputs, records, device, due: int) -> dict:
     if not use_obs:
         names = [n for n in names if n not in ("dsn_err", "label_mismatch")]
     values = dict.fromkeys(names, 0.0)
-    n_sa = cell.config["model"]["backbone_stages"][0][0]
-    if use_obs:
-        n_sa = max(n_sa, cell.config["dsn"]["pt_stages"][0][0])
     needed = {"ep", "grasps", "keep"} | ({"sa", "fg", "off", "labels"} if use_obs else set())
     with torch.no_grad():
         for j, rec in records:
@@ -238,7 +266,7 @@ def check(cell, inputs, records, device, due: int) -> dict:
                 continue
             cloud = torch.from_numpy(inputs.clouds[j]).to(device)
             try:
-                judge_one(rec, cloud, inputs.gumbel[j], model, dsn, n_sa, values)
+                judge_one(rec, cloud, inputs.gumbel[j], model, dsn, values)
             except (RuntimeError, IndexError) as err:  # stages of the wrong shape
                 print(f"call of batch {j}: {err}", file=sys.stderr)
                 values["malformed_calls"] += 1
@@ -254,19 +282,16 @@ def control_record(cell, inputs, j: int, model, dsn) -> dict:
     """The reference with TF32 products in the program's place: what
     ``Capture`` would keep of one call, and its answer."""
     cloud = torch.from_numpy(inputs.clouds[j]).to(inputs.gumbel.device)
-    n_sa = cell.config["model"]["backbone_stages"][0][0]
     rec = {}
     with torch.no_grad(), tf32_products():
-        if dsn is not None:
-            n_sa = max(n_sa, dsn.pt_stages[0][0])
-        sa = ref_ops.furthest_point_sample(cloud, n_sa)
+        sampled, shared = reference_sample(model, dsn, cloud)
         labels = None
         if dsn is not None:
-            rec["sa"] = sa
-            rec["fg"], rec["off"] = dsn(cloud, sa[:, : dsn.pt_stages[0][0]])
+            rec["sa"] = shared
+            rec["fg"], rec["off"] = dsn(cloud, shared[:, : dsn.pt_stages[0][0]])
             labels = rec["labels"] = ref_dsn_mod.cluster(cloud, rec["off"], rec["fg"], inputs.gumbel[j])
-        ep = model(cloud, sa[:, : cell.config["model"]["backbone_stages"][0][0]], seed_cluster=labels)
-        rec["ep"] = {k: ep[k] for k in EP_KEYS}
+        ep = model(cloud, sampled, seed_cluster=labels)
+        rec["ep"] = {k: ep[k] for k in ep_keys(cell)}
         grasps, valid = ref_models.pred_decode(ep)
         rec["grasps"], rec["keep"] = grasps.cpu().numpy(), ref_post.postprocess(grasps, valid, cloud).cpu().numpy()
     return rec
@@ -285,7 +310,7 @@ def readings(cell, seed: int, program: bool, device, fault=None) -> dict:
     out = {}
     if program:
         infer = build_program(cell, inputs, dev)
-        cap = Capture(infer)
+        cap = Capture(infer, ep_keys(cell))
         records = []
         for j in batches:
             cap.on = True
@@ -295,7 +320,7 @@ def readings(cell, seed: int, program: bool, device, fault=None) -> dict:
             records.append((j, rec))
         del infer, cap
         out["program"] = check(cell, inputs, records, dev, len(records))
-    model, dsn = reference_modules(cell.config, cell.traffic["use_obs"], dev)
+    model, dsn = reference_modules(cell, cell.traffic["use_obs"], dev)
     model.load_state_dict(inputs.state)
     if dsn is not None:
         dsn.load_state_dict(inputs.dsn_state)
@@ -316,39 +341,6 @@ def power_limit() -> str:
         return "unknown"
 
 
-def time_widthmlp(infer, cloud, gumbel, reps: int = 20):
-    """The width head's kernel entry on the inputs it gets on the cell's own
-    path (captured from one call): device ms per launch, operations, bytes."""
-    from graspbalance_tpu_torch.models import heads
-
-    entry, seen = heads.width_mlp_fused_rot, []
-
-    def keep_args(*args):
-        seen.append(args)
-        return entry(*args)
-
-    heads.width_mlp_fused_rot = keep_args
-    try:
-        infer(cloud, gumbel=gumbel)
-    finally:
-        heads.width_mlp_fused_rot = entry
-    if not seen:
-        return None
-    args = seen[0]
-    entry(*args)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        entry(*args)
-    end.record()
-    torch.cuda.synchronize()
-    b, s, r, h, k, _ = args[0].shape
-    widths = tuple(w[0].shape[1] for w in args[3][0])
-    ops, nbytes = kernel_counts.widthmlp(b, s, r, h, k, widths)
-    return start.elapsed_time(end) / reps, ops, nbytes
-
-
 def run(cell, *, seed: int, seconds: float, trace: bool, device: str, t0: float):
     tr = cell.traffic
     dev = torch.device(device)
@@ -358,7 +350,7 @@ def run(cell, *, seed: int, seconds: float, trace: bool, device: str, t0: float)
     parts["inputs"] = time.perf_counter() - t0
     infer = build_program(cell, inputs, dev)
     parts["program"] = time.perf_counter() - t0
-    cap = Capture(infer)
+    cap = Capture(infer, ep_keys(cell))
     spans = tracing.Spans()
     if trace and cuda:
         if infer.use_obs:
@@ -407,7 +399,8 @@ def run(cell, *, seed: int, seconds: float, trace: bool, device: str, t0: float)
     out = SimpleNamespace(
         attempted=len(lat), failed=0, setup_s=setup_s, window_s=window_s, latencies=lat,
         scenes_per_call=tr["batch"], breakdown=None, profile={}, kernels={}, spans={}, train=None,
-        flops_per_call=model_counts.graspbalance_forward(cell.config["model"], tr["batch"])
+        flops_per_call=model_counts.graspbalance_forward(cell.config["model"], tr["batch"], tr["num_points"],
+                                                         bench=cell.bench)
         + (model_counts.dsn_forward(cell.config["dsn"]["pt_stages"], tr["batch"], tr["num_points"])
            if tr["use_obs"] else 0.0),
         peak_flops=cell.config["peak_flops"], peak_bytes=cell.config["peak_bytes"],
@@ -429,9 +422,7 @@ def run(cell, *, seed: int, seconds: float, trace: bool, device: str, t0: float)
         if out.profile:
             out.device.update(busy_s=out.profile["busy_s"], window_s=out.profile["window_s"])
             out.breakdown = {"device_ops": out.profile["device_ops"], "idle_gaps": out.profile["idle_gaps"]}
-        timed = time_widthmlp(infer, inputs.clouds[0], inputs.gumbel[0])
-        if timed is not None:
-            out.kernels["widthmlp"] = timed
+        out.kernels = harness.run_probes(cell, lambda: infer(inputs.clouds[0], gumbel=inputs.gumbel[0]))
     del infer, cap
     if cuda:
         torch.cuda.empty_cache()

@@ -44,8 +44,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from bench_port import host, scenes, tracing, weights
-from bench_port.counts import kernels as kernel_counts
+from bench_port import harness, host, scenes, tracing, weights
 from bench_port.counts import model as model_counts
 from bench_port.reference import labels as ref_labels
 from bench_port.reference import models as ref_models
@@ -75,17 +74,18 @@ def batches(cell, seed: int, stop: threading.Event):
         yield {k: np.stack([s[k] for s in scenes_]) for k in BATCH_KEYS}
 
 
+def tuples(v):
+    """JSON's lists as tuples, at every depth (the program's Config holds tuples)."""
+    return tuple(tuples(x) for x in v) if isinstance(v, list) else v
+
+
 def port_config(cell):
     """The program's Config for the cell."""
     from graspbalance_tpu_torch.train.config import Config, DataConfig, ModelConfig, TrainConfig
 
-    m = dict(cell.config["model"])
-    m["backbone_stages"] = tuple(tuple(tuple(x) if isinstance(x, list) else x for x in s)
-                                 for s in m["backbone_stages"])
-    m["hmax_list"] = tuple(m["hmax_list"])
     tr = cell.traffic
     return Config(
-        model=ModelConfig(**m, dtype=cell.config["dtype"]),
+        model=ModelConfig(**{k: tuples(v) for k, v in cell.config["model"].items()}, dtype=cell.config["dtype"]),
         data=DataConfig(num_points=tr["num_points"], max_objects=tr["max_objects"],
                         max_grasp_points=tr["max_grasp_points"], batch_size=tr["batch"], analytic_labels=True),
         train=TrainConfig(**cell.config["train"]),
@@ -94,7 +94,7 @@ def port_config(cell):
 
 def initial_state(cell, seed: int, device):
     with torch.device("meta"):
-        ref = ref_models.GraspBalance(**cell.config["model"])
+        ref = ref_models.GraspBalance(**cell.config["model"], bench=cell.bench)
     return weights.flax_init_state(weights.shapes_of(ref), seed, device, salt=4)
 
 
@@ -163,7 +163,7 @@ def reference_steps(cell, state, hosts, device, tf32: bool = False) -> SimpleNam
     train mode; with ``tf32`` every product in TF32 (the control)."""
     t = cell.config["train"]
     with torch.device(device):
-        model = ref_models.GraspBalance(**cell.config["model"])
+        model = ref_models.GraspBalance(**cell.config["model"], bench=cell.bench)
     model.load_state_dict(state)
     model.train()
     opt = torch.optim.Adam(model.parameters(), lr=t["learning_rate"], betas=(0.9, 0.999), eps=1e-8,
@@ -252,46 +252,6 @@ def diagnose(got: SimpleNamespace, ref: SimpleNamespace) -> dict:
 
 def passed(checks: dict) -> bool:
     return all(v <= lim for v, lim in checks.values())
-
-
-def capture_scatters(prog) -> list:
-    """(ct, idx, n) of every scatter-add that one step's gather backward launches."""
-    from graspbalance_tpu_torch.ops import gather
-
-    entry, seen = gather.scatter_add, []
-
-    def keep(ct, idx, n):
-        seen.append((ct, idx, n))
-        return entry(ct, idx, n)
-
-    gather.scatter_add = keep
-    try:
-        prog.step()
-    finally:
-        gather.scatter_add = entry
-    return seen
-
-
-def time_scatters(calls, reps: int = 5):
-    """Device ms, operations and bytes summed over the captured calls, each
-    timed over ``reps`` launches with CUDA events."""
-    from graspbalance_tpu_torch.ops.scatter import scatter_add
-
-    total_ms = total_ops = total_bytes = 0.0
-    for ct, idx, n in calls:
-        scatter_add(ct, idx, n)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(reps):
-            scatter_add(ct, idx, n)
-        end.record()
-        torch.cuda.synchronize()
-        total_ms += start.elapsed_time(end) / reps
-        ops, nbytes = kernel_counts.scatter_add(*ct.shape, n)
-        total_ops += ops
-        total_bytes += nbytes
-    return total_ms, total_ops, total_bytes
 
 
 def readings(cell, seed: int, program: bool, device, fault=None) -> dict:
@@ -422,7 +382,8 @@ def run(cell, *, seed: int, seconds: float, trace: bool, device: str, t0: float)
         attempted=steps, failed=0, setup_s=setup_s, window_s=window_s, latencies=[], scenes_per_call=None,
         breakdown=None, profile={}, kernels={}, spans={},
         train={"clouds": steps * tr["batch"], "peak_bytes": peak, "wait_s": wait_s},
-        flops_per_call=3 * model_counts.graspbalance_forward(cell.config["model"], tr["batch"]),
+        flops_per_call=3 * model_counts.graspbalance_forward(cell.config["model"], tr["batch"], tr["num_points"],
+                                                             bench=cell.bench),
         peak_flops=cell.config["peak_flops"], peak_bytes=cell.config["peak_bytes"],
         device={"platform": "gpu" if cuda else "cpu", "kind": torch.cuda.get_device_name(dev) if cuda else "cpu",
                 "count": 1, "memory_peak_bytes": int(torch.cuda.max_memory_allocated(dev)) if cuda else 0},
@@ -433,7 +394,7 @@ def run(cell, *, seed: int, seconds: float, trace: bool, device: str, t0: float)
         if out.profile:
             out.device.update(busy_s=out.profile["busy_s"], window_s=out.profile["window_s"])
             out.breakdown = {"device_ops": out.profile["device_ops"], "idle_gaps": out.profile["idle_gaps"]}
-        out.kernels["scatter"] = time_scatters(capture_scatters(prog))
+        out.kernels = harness.run_probes(cell, prog.step)
     prog.close()
     del prog
     if cuda:
