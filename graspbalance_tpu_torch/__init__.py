@@ -17,8 +17,9 @@ Layout:
   nn/       BatchNorm / MLPBlock / SharedMLP (train-mode BatchNorm + ReLU
             through ``ops/batchnorm.py``'s kernels on the card), set
             abstraction and feature propagation
-  models/   DRP backbone, grasp heads, GraspBalance eval forward (with OBS
-            re-seeding), pred_decode, the point-transformer DSN
+  models/   the DRP, PointNet++ and Point Transformer backbones, grasp
+            heads, GraspBalance eval forward (with OBS re-seeding),
+            pred_decode, the point-transformer DSN
   eval/     grasp NMS, voxel downsample + collision filter, mean shift, OBS,
             the end-to-end GraspInference pipeline and its dataset dump,
             closed-loop quality of both models

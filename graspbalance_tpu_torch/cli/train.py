@@ -12,7 +12,8 @@ expanded on the device. Runs on the card unless ``--device cpu``.
 ``--dtype bfloat16`` trains in bfloat16 compute (``--width_mlp_dtype
 bfloat16`` only the width head's MLPs); both are recorded in config.json.
 ``--backbone pointnet2`` trains the PointNet++ SSG backbone
-(models/backbone.py) in place of DRP. As in the JAX CLI, the scenes and the
+(models/backbone.py) in place of DRP, ``--backbone pt`` Point Transformer
+(models/pt_backbone.py). As in the JAX CLI, the scenes and the
 heads keep the default 12 angles and 4 depths.
 
 On S cards, data-parallel over S ranks (each its rows of the global batch
@@ -32,6 +33,8 @@ import argparse
 
 
 def parse_args(argv=None):
+    from graspbalance_tpu_torch.models.graspbalance import BACKBONES
+
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--dataset_root", default="", help="GraspNet-1B root (empty = synthetic data)")
     p.add_argument("--camera", default="realsense", choices=["realsense", "kinect"])
@@ -47,7 +50,7 @@ def parse_args(argv=None):
     p.add_argument("--num_workers", type=int, default=2)
     p.add_argument("--ncm", action="store_true", default=True, help="noisy-clean mix")
     p.add_argument("--no-ncm", dest="ncm", action="store_false")
-    p.add_argument("--backbone", default="drp", choices=["drp", "pointnet2"], help="the backbone")
+    p.add_argument("--backbone", default="drp", choices=sorted(BACKBONES), help="the backbone")
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"], help="compute dtype")
     p.add_argument("--width_mlp_dtype", default=None, choices=[None, "bfloat16"],
                    help="the width head's MLPs' compute dtype (default: --dtype)")

@@ -14,7 +14,8 @@ pipeline (labels/label_gen.py) instead of ragged lists of tensors:
   instance_label (N,) i32         object_poses (O,3,4) f32  obj_mask (O,)
   grasp_points (P,3) f32          grasp_pt_obj (P,) i32     grasp_pt_mask (P,)
   grasp_labels/widths/tolerance (P,V,A,D) f32
-  [optional] sa_inds (2048,) i32  host-precomputed FPS indices
+  [optional] sa_inds (F,) i32     host-precomputed FPS indices, the
+                                  backbone's fps_length (DRP's 2048)
 
 Offsets note: the reference ships (angle, depth, width) offset channels but
 only width is ever consumed (TrainModel/loss.py:126-131 extracts all three,
@@ -401,7 +402,9 @@ def collate(items: list[dict]) -> dict:
 
 def make_dataloaders(cfg):
     """(train_batches(epoch), eval_batches(), steps_per_epoch) for Config."""
-    d = cfg.data
+    from graspbalance_tpu_torch.models.graspbalance import fps_length
+
+    d, m = cfg.data, cfg.model
     valid, labels = load_grasp_labels(d.dataset_root)
     common = dict(
         root=d.dataset_root,
@@ -411,7 +414,7 @@ def make_dataloaders(cfg):
         num_points=d.num_points,
         max_objects=d.max_objects,
         max_grasp_points=d.max_grasp_points,
-        precompute_fps=2048 if d.precompute_fps else 0,
+        precompute_fps=fps_length(m.backbone, m.backbone_stages) if d.precompute_fps else 0,
     )
     train_ds = GraspNetDataset(
         split="train", remove_outlier=True, augment=d.augment, ncm=d.ncm, **common

@@ -85,9 +85,10 @@ class GraspInference:
         if self.use_obs:
             # one FPS serves both networks: greedy FPS re-traces itself, so
             # the DSN's stage-0 sample and the model backbone's are prefixes
-            # of one run over the same cloud
+            # of one run over the same cloud; the backbone says how long its
+            # own is (``fps_prefix``)
             self.n0_dsn = dsn.pt_stages[0][0]
-            self.n0_model = model.backbone.stages[0][0]
+            self.n0_model = model.backbone.fps_prefix(model.backbone.stages)
 
     def sample(self, cloud: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
         """The shared FPS of both networks: (B, max(n0_dsn, n0_model)) int32."""

@@ -51,6 +51,12 @@ class Pointnet2Backbone(nn.Module):
         self.fp1 = FeaturePropagation(widths[3] + widths[2], (256, 256), dtype=dtype)
         self.fp2 = FeaturePropagation(256 + widths[1], (256, 256), dtype=dtype)
 
+    @staticmethod
+    def fps_prefix(stages) -> int:
+        """The length of the one FPS of the raw cloud whose prefixes the
+        stages of ``stages`` take."""
+        return stages[0][0]
+
     def forward(self, pointcloud: torch.Tensor, *, sa_inds=None, plain: bool = False) -> dict:
         """pointcloud (B, N, 3); sa_inds optional (B, npoint_1) FPS indices.
         ``plain`` runs the plain PyTorch versions of FPS and of the fused
@@ -62,7 +68,7 @@ class Pointnet2Backbone(nn.Module):
         out = {"input_xyz": xyz, "input_features": None}
         if sa_inds is None:
             fps = furthest_point_sample_plain if plain else ops.furthest_point_sample
-            sa_inds = fps(xyz, self.stages[0][0])
+            sa_inds = fps(xyz, self.fps_prefix(self.stages))
         out["sa1_inds"] = sa_inds
 
         stage_xyz, stage_feats = [], []

@@ -2,8 +2,9 @@
 the eval forward (``match_labels=False``) and the training forward
 (``train=True``), for every model the JAX package builds.
 
-  Stage 1: the backbone (``backbone='drp'``, DRP, or ``'pointnet2'``, the
-           PointNet++ SSG backbone) -> optional OBS re-seeding from a DSN
+  Stage 1: the backbone (``backbone='drp'``, DRP, ``'pointnet2'``, the
+           PointNet++ SSG backbone, or ``'pt'``, Point Transformer,
+           models/pt_backbone.py) -> optional OBS re-seeding from a DSN
            instance clustering (eval) -> GraspableDetection (objectness,
            view scores, top view and its approach rotation).
   Labels:  (training) label matching on the device, labels/label_gen.py.
@@ -37,6 +38,7 @@ from graspbalance_tpu_torch.eval.obs import object_balance_indices
 from graspbalance_tpu_torch.labels.label_gen import match_grasp_view_and_label, process_grasp_labels
 from graspbalance_tpu_torch.models.backbone import SSG_STAGES, Pointnet2Backbone
 from graspbalance_tpu_torch.models.drp import DRP, DRP_STAGES
+from graspbalance_tpu_torch.models.pt_backbone import PT_STAGES, PTBackbone
 from graspbalance_tpu_torch.models.heads import (
     CYLINDER_RADIUS,
     HMAX_LIST,
@@ -54,15 +56,22 @@ from graspbalance_tpu_torch.ops.gather import gather_points
 from graspbalance_tpu_torch.ops.interpolate import interpolate_features
 
 
-BACKBONES = {"drp": (DRP, DRP_STAGES), "pointnet2": (Pointnet2Backbone, SSG_STAGES)}
+BACKBONES = {"drp": (DRP, DRP_STAGES), "pointnet2": (Pointnet2Backbone, SSG_STAGES), "pt": (PTBackbone, PT_STAGES)}
+
+
+def fps_length(backbone: str, stages=None) -> int:
+    """The length of the one raw-cloud FPS whose prefixes backbone
+    ``backbone`` takes at ``stages`` (None: its full table)."""
+    cls, default = BACKBONES[backbone]
+    return cls.fps_prefix(stages or default)
 
 
 class GraspBalance(nn.Module):
     """The JAX model's fields, with its defaults: ``num_view``,
     ``num_angle``, ``num_depth``, ``cylinder_radius``, ``hmin``,
-    ``hmax_list`` (``num_depth`` entries), ``backbone`` ('drp' |
-    'pointnet2'), ``backbone_stages`` (None: the backbone's full table),
-    ``multi_scale``, ``num_seed`` and ``query_order`` ('index' |
+    ``hmax_list`` (``num_depth`` entries), ``backbone`` (a key of
+    ``BACKBONES``: 'drp' | 'pointnet2' | 'pt'), ``backbone_stages``
+    (None: the backbone's full table), ``multi_scale``, ``num_seed`` and ``query_order`` ('index' |
     'nearest', every query of the model).
 
     The fused eval configuration, off by default: ``fused_backbone_min_nsample``

@@ -4,14 +4,16 @@
 ``knn`` at k <= 32 launches the CUDA kernel (``csrc/knn.cu``, a filtered
 warp-select) on CUDA tensors and runs ``knn_plain`` on CPU tensors. At
 k > 32 it runs ``knn_sorted`` on either device, as the JAX ``knn`` runs
-``lax.top_k`` there and no kernel.
+``lax.top_k`` there and no kernel. Each ``knn`` call adds its queries x
+references (B x Q x R, from the shapes) to the counter ``knn.pairs``
+(``trace.py``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from graspbalance_tpu_torch import _build
+from graspbalance_tpu_torch import _build, trace
 
 MAX_K = 32  # the kernel keeps a warp's best 32 keys, one a lane; larger k sorts
 
@@ -84,6 +86,7 @@ def knn(ref: torch.Tensor, query: torch.Tensor, k: int, *, method: str = "exact"
         raise ValueError(f"need ref (B, R, 3), query (B, Q, 3); got {tuple(ref.shape)}, {tuple(query.shape)}")
     if not 1 <= k <= r:
         raise ValueError(f"knn takes 1 <= k <= R={r}, got k={k}")
+    trace.count("knn.pairs", b * query.shape[1] * r)
     if k > MAX_K:
         return knn_sorted(ref, query, k)
     if ref.device.type == "cpu":

@@ -28,7 +28,7 @@ class ModelConfig:
     cylinder_radius: float = 0.08
     hmin: float = -0.02
     hmax_list: Sequence[float] = (0.01, 0.02, 0.03, 0.04)
-    backbone: str = "drp"  # 'drp' | 'pointnet2'
+    backbone: str = "drp"  # 'drp' | 'pointnet2' | 'pt' (models/graspbalance.py:BACKBONES)
     backbone_stages: tuple | None = None  # None = the backbone's full stage table
     num_seed: int = 1024
     query_order: str = "index"  # 'index' (reference parity) | 'nearest'

@@ -467,6 +467,22 @@ def test_knn_kernel_refuses_what_it_cannot_take(dev):
         knn(pts.double(), pts.double(), 4)
 
 
+@pytest.mark.parametrize("b,q,r,k", [(2, 20000, 20000, 8), (2, 5000, 20000, 16), (2, 20000, 5000, 3),
+                                     (8, 78, 312, 16)])
+def test_knn_kernel_at_the_point_transformer_shapes(dev, b, q, r, k):
+    """The Point Transformer backbone's searches at 20,000-point clouds: the
+    first stage's own, a transition-down's, a transition-up's 3-NN and the
+    coarsest stage's, on scene-like points (a table plane and boxes)."""
+    from graspbalance_tpu_torch.data.synthetic import SceneConfig, make_point_clouds
+
+    pts = torch.from_numpy(make_point_clouds(3, b, SceneConfig(num_points=20000))).to(dev)
+    ref, query = pts[:, :r].contiguous(), pts[:, :q].contiguous()
+    dist, idx = knn(ref, query, k)
+    dist_p, idx_p = knn_plain(ref, query, k)
+    torch.testing.assert_close(idx, idx_p, atol=0, rtol=0)
+    torch.testing.assert_close(dist, dist_p, atol=0, rtol=0)
+
+
 @pytest.mark.parametrize("n,m,needed", [(1, 4, 4), (1000, 300, 300), (4096, 512, 128), (4096, 512, 1), (20000, 64, 64)])
 def test_fps_masked_kernel(dev, rng, n, m, needed):
     s = 6
@@ -1326,6 +1342,49 @@ def test_batchnorm_kernel_edge_shapes(dev, rows, c, act):
     inputs = _bn_inputs(dev, rows, c, seed=1)
     got = _bn_run(bn_act_train, *inputs, act)
     _bn_check(got, _bn_float64(*inputs, act, got[0] > 0))
+
+
+@pytest.mark.parametrize("act", [True, False])
+@pytest.mark.parametrize("rows,c", [(1_280_000, 3), (1_280_000, 4), (1_280_000, 32), (640_000, 8), (640_000, 64),
+                                    (40_000, 256), (624, 512)])
+def test_batchnorm_kernel_at_the_point_transformer_shapes(dev, rows, c, act):
+    """The Point Transformer training step's (B * N * k, C) and (B * N, C)
+    rows at bs=8: the position code's 3 channels, the attention weights'
+    C / 8, the stages' widths."""
+    inputs = _bn_inputs(dev, rows, c, seed=3)
+    got = _bn_run(bn_act_train, *inputs, act)
+    _bn_check(got, _bn_float64(*inputs, act, got[0] > 0))
+
+
+def test_pt_backbone_on_the_card_is_its_plain_version(dev):
+    """The Point Transformer backbone through FPS's and kNN's kernels
+    against their plain versions, the rest on the same code: the eval end
+    points and a train-mode step's gradients bit-equal."""
+    from graspbalance_tpu_torch.data.synthetic import SceneConfig, make_point_clouds
+    from graspbalance_tpu_torch.models.pt_backbone import PTBackbone
+
+    stages = ((4096, 8, 32, 1), (1024, 16, 64, 1), (256, 16, 128, 1), (64, 16, 256, 1), (16, 16, 512, 1))
+    model = init_random_(PTBackbone(stages, num_seed=256), seed=7).to(dev)
+    xyz = torch.from_numpy(make_point_clouds(4, 2, SceneConfig(num_points=4096))).to(dev)
+    w = torch.randn((256, 256), device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    outs = []
+    for plain in (False, True):
+        model.load_state_dict(state)
+        model.eval()
+        with torch.no_grad():
+            ep = model(xyz, plain=plain)
+        model.train()
+        model.zero_grad()
+        before = _build.launches["knn"]
+        (model(xyz, plain=plain)["fp2_features"] * w).sum().backward()
+        assert (_build.launches["knn"] > before) != plain
+        outs.append((ep, {k: p.grad.clone() for k, p in model.named_parameters()}))
+    (ep, grads), (ep_p, grads_p) = outs
+    for key in ("fps_inds", "fp2_inds", "fp2_xyz", "fp2_features"):
+        assert torch.equal(ep[key], ep_p[key]), key
+    for key, g in grads.items():
+        assert torch.equal(g, grads_p[key]), key
 
 
 def test_batchnorm_kernel_is_deterministic(dev):
